@@ -1,0 +1,548 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one NVIDIA Hopper card.
+
+    python3 chip_smoke.py [--seed N]
+
+Phases, one JSON line each:
+
+  0. device -- the card's name and power limit (``nvidia-smi``) and its
+     compute capability;
+  1. build  -- the three CUDA kernels built from ``src/repro_torch/
+     kernels/csrc`` (or loaded from ``build/repro_torch/``);
+  3. mv     -- the coded LM head of phi3-mini-3.8b: ``compile_plan`` over
+     a random (3072, 32064) head with ``CodedConfig``'s defaults (n=16
+     workers, s=2 stragglers, Alg. 1), then ``plan.matvec`` for a decode
+     step of 8 requests under the all-alive and three random straggler
+     patterns, in f32 and with the head in bf16, held against A^T x in
+     f64 on the card;
+  4. mm     -- the paper's Fig. 4 system (n=20, k_A=k_B=4, s=4) over
+     (8192, 4096) operands with 98% of their 32x32 tiles zero:
+     ``plan.matmat`` under two random straggler patterns, held against
+     A^T B in f64;
+  2. kernels -- after each of phases 3 and 4, every kernel held against
+     its plain PyTorch version at that phase's shapes, in f32 and bf16,
+     with its time, the plain version's, one PyTorch library call's, and
+     the least time the card could take (the bound).
+
+Launch counters are set to 0 just before each main path and read just
+after: every encode must have gone through ``cyclic_encode``, every
+worker product through ``bcsr_matmul`` and every decode through
+``decode_matmul``.  Any failure raises and exits non-zero.  The last
+three lines are the kernel table, the ``nvidia-smi`` line and
+``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+from repro_torch.api import compile_plan  # noqa: E402
+from repro_torch.core.coded_matmul import split_block_columns  # noqa: E402
+from repro_torch.core.encoding import mv_encoding_matrix  # noqa: E402
+from repro_torch.kernels import (  # noqa: E402
+    _build,
+    bcsr_matmul,
+    bcsr_matmul_plain,
+    cyclic_encode,
+    cyclic_encode_plain,
+    decode_matmul,
+    decode_matmul_plain,
+    launch_counts,
+    reset_launch_counts,
+)
+from repro_torch.runtime import encode_blocks, support_tables  # noqa: E402
+
+# H100 SXM peaks (NVIDIA data sheet): HBM3 rate and f32 FFMA rate
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+# tolerances of tests/test_kernels.py (allclose: |a-b| <= atol + rtol|b|)
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# end-to-end relative error bounds (examples/quickstart.py asserts 1e-3)
+REL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
+
+SOURCES = {
+    "bcsr_matmul": ("src/repro_torch/kernels/csrc/bcsr_matmul.cu",
+                    "src/repro/kernels/bcsr_matmul.py:50"),
+    "cyclic_encode": ("src/repro_torch/kernels/csrc/cyclic_encode.cu",
+                      "src/repro/kernels/cyclic_encode.py:39"),
+    "decode_matmul": ("src/repro_torch/kernels/csrc/decode_matmul.cu",
+                      "src/repro/kernels/decode_matmul.py:27"),
+}
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def nvidia_smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` back-to-back calls."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def host_p50_ms(fn, reps: int) -> float:
+    """Median host wall time of ``fn`` ending in a device synchronise."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def rel_err(out: torch.Tensor, ref: torch.Tensor) -> float:
+    return float((out.double() - ref).abs().max() / ref.abs().max())
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_kernel(name: str, case: str, kernel, plain, library, *,
+                 dtype: torch.dtype, nbytes: float, flops: float,
+                 reps: int, plain_reps: int) -> dict:
+    """Hold one kernel against its plain version; time all three."""
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    tol = TOL[dtype]
+    diff = (got - want).abs()
+    excess = float((diff - (tol + tol * want.abs())).max())
+    row = {
+        "name": name, "case": case, "dtype": str(dtype).removeprefix("torch."),
+        "shape": list(got.shape), "max_abs_err": float(diff.max()),
+        "tol": tol, "ok": excess <= 0.0,
+        "ms": cuda_ms(kernel, reps), "plain_ms": cuda_ms(plain, plain_reps),
+        "library_ms": None if library is None else cuda_ms(library, reps),
+    }
+    row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
+    row["bytes"], row["flops"] = nbytes, flops
+    emit("kernels", **row)
+    if not row["ok"]:
+        raise AssertionError(f"{name} ({case}, {row['dtype']}) disagrees "
+                             f"with its plain version: {row}")
+    return row
+
+
+def straggler_masks(rng, n: int, s: int, count: int) -> list[np.ndarray]:
+    masks = []
+    for _ in range(count):
+        done = np.ones(n, bool)
+        done[rng.choice(n, size=s, replace=False)] = False
+        masks.append(done)
+    return masks
+
+
+def launched_since(before: dict) -> dict:
+    return {k: v - before[k] for k, v in launch_counts().items()}
+
+
+def expect_counts(where: str, counts: dict, **want) -> None:
+    if counts != want:
+        raise AssertionError(f"{where}: launch counts {counts}, expected "
+                             f"{want}")
+
+
+# ---------------------------------------------------------------------------
+# bcsr_matmul / cyclic_encode / decode_matmul checks at one phase's shapes
+# ---------------------------------------------------------------------------
+
+
+def bcsr_bytes(packed, workers, b: torch.Tensor, n_out_rows: int) -> float:
+    """Bytes the product must move: the live workers' nonzero tiles and
+    their slot indices, the B rows those tiles select, C written once."""
+    tiles = sum(packed.tile_counts[int(i)] for i in workers)
+    esz = packed.a_data.element_size()
+    idx = packed.a_idx.view(packed.n, packed.mb, -1)
+    kblocks = set()
+    for i in workers:
+        counts = packed.slot_counts[int(i)]
+        rows_i = idx[int(i)].cpu().numpy()
+        for m, cnt in enumerate(counts):
+            kblocks.update(rows_i[m, :cnt].tolist())
+    b_rows = min(len(kblocks) * packed.bk, b.shape[0])
+    return (tiles * packed.bk * packed.bm * esz
+            + len(workers) * packed.mb * packed.slots * 4
+            + b_rows * b.shape[1] * b.element_size()
+            + n_out_rows * b.shape[1] * 4)
+
+
+def bcsr_flops(packed, workers, n_cols: int) -> float:
+    tiles = sum(packed.tile_counts[int(i)] for i in workers)
+    return 2.0 * tiles * packed.bk * packed.bm * n_cols
+
+
+def check_bcsr_mv(plan, x, done, case, reps) -> dict:
+    ex = plan.executor
+    packed, dplan = ex.packed, ex.cache.plan(done)
+    b = x.T.contiguous()
+    rows = dplan.rows_dev
+    live = ex.coded[dplan.rows_dev.long()]            # (k, t, c) dense shards
+    dtype = packed.a_data.dtype
+    return check_kernel(
+        "bcsr_matmul", case,
+        lambda: bcsr_matmul(packed.a_data, packed.a_idx, b, rows, mb=packed.mb),
+        lambda: bcsr_matmul_plain(packed.a_data, packed.a_idx, b, rows,
+                                  mb=packed.mb),
+        lambda: torch.matmul(live.transpose(1, 2), b.to(live.dtype)),
+        dtype=dtype, nbytes=bcsr_bytes(packed, dplan.rows, b,
+                                       ex.k * packed.c_pad),
+        flops=bcsr_flops(packed, dplan.rows, b.shape[1]),
+        reps=reps, plain_reps=3)
+
+
+def check_bcsr_worker(plan, coded_b, worker, case, reps) -> dict:
+    ex = plan.executor
+    packed = ex.packed
+    a_data, a_idx = packed.worker_view(worker)
+    b = coded_b[worker]
+    shard = ex.coded[worker]
+    return check_kernel(
+        "bcsr_matmul", case,
+        lambda: bcsr_matmul(a_data, a_idx, b),
+        lambda: bcsr_matmul_plain(a_data, a_idx, b),
+        lambda: torch.matmul(shard.T.to(b.dtype), b),
+        dtype=a_data.dtype, nbytes=bcsr_bytes(packed, [worker], b,
+                                              packed.c_pad),
+        flops=bcsr_flops(packed, [worker], b.shape[1]),
+        reps=reps, plain_reps=3)
+
+
+def check_encode(blocks, sup, coef, R, case, reps) -> dict:
+    n, w = sup.shape
+    k, t, c = blocks.shape
+    Rd = torch.as_tensor(R, dtype=blocks.dtype, device=blocks.device)
+    nbytes = (blocks.numel() * blocks.element_size() + n * t * c * 4
+              + sup.numel() * 8)
+    return check_kernel(
+        "cyclic_encode", case,
+        lambda: cyclic_encode(blocks, sup, coef),
+        lambda: cyclic_encode_plain(blocks, sup, coef),
+        lambda: torch.einsum("nk,ktc->ntc", Rd, blocks),
+        dtype=blocks.dtype, nbytes=nbytes, flops=2.0 * n * w * t * c,
+        reps=reps, plain_reps=2)
+
+
+def check_decode(hinv, y, case, reps) -> dict:
+    k, p = y.shape
+    nbytes = hinv.numel() * 4 + y.numel() * y.element_size() + k * p * 4
+    return check_kernel(
+        "decode_matmul", case,
+        lambda: decode_matmul(hinv, y),
+        lambda: decode_matmul_plain(hinv, y),
+        lambda: torch.matmul(hinv.to(y.dtype), y),
+        dtype=y.dtype, nbytes=nbytes, flops=2.0 * k * k * p,
+        reps=reps, plain_reps=reps)
+
+
+# ---------------------------------------------------------------------------
+# End-to-end error of a decoded result
+# ---------------------------------------------------------------------------
+
+
+def decode_bound(dtype: torch.dtype, kappa: float, t: int) -> float:
+    """The relative error a decode may show under one straggler pattern.
+
+    The decode multiplies by the inverse of G[rows], so it amplifies the
+    relative error its inputs carry by up to kappa = cond(G[rows]): the
+    f32 rounding of t-term sums (2^-24 sqrt(t)) for f32 shards, the bf16
+    storage of the shards (2^-9) for bf16 ones.  The stated bound
+    (REL) holds where kappa is small; the reference's arithmetic (f32
+    inverse, f32 products, bf16 shards) is the same, so an
+    ill-conditioned pattern costs it the same.
+    """
+    eps = 2.0 ** -24 * t ** 0.5 if dtype == torch.float32 else 2.0 ** -9
+    return max(REL[dtype], kappa * eps)
+
+
+def mv_stored_decode(plan, rows: np.ndarray, x: torch.Tensor, r: int):
+    """A^T x as the plan defines it, in f64: the stored shards of the
+    live workers, times x, decoded by the f32 inverse the decode cache
+    holds for this pattern (``decode_cache.py``'s arithmetic)."""
+    ex = plan.executor
+    g64 = ex.G.cpu().numpy().astype(np.float64)
+    hinv = torch.from_numpy(np.linalg.inv(g64[rows]).astype(np.float32))
+    live = torch.as_tensor(rows, device=x.device)
+    y = torch.einsum("ntc,bt->nbc", ex.coded[live].double(), x.double())
+    u = hinv.to(x.device, torch.float64) @ y.reshape(ex.k, -1)
+    b = x.shape[0]
+    return u.reshape(ex.k, b, -1).transpose(0, 1).reshape(b, -1)[:, :r]
+
+
+def check_decoded(phase: str, dtype, plan, done, out, ref, t: int,
+                  stored=None) -> dict:
+    """Hold a decoded result against f64 truth (and, for bf16 shards,
+    against the f64 decode of the stored shards)."""
+    rows = np.flatnonzero(done)[: plan.k]
+    kappa = float(np.linalg.cond(plan.G[rows]))
+    limit = decode_bound(dtype, kappa, t)
+    row = {"stragglers": np.flatnonzero(~done).tolist(), "kappa": kappa,
+           "rel_err": rel_err(out, ref), "bound": limit}
+    if stored is not None:
+        row["rel_err_vs_stored"] = rel_err(out, stored(rows))
+        row["bound_vs_stored"] = REL[dtype]
+        if not row["rel_err_vs_stored"] <= REL[dtype]:
+            raise AssertionError(f"{phase} {dtype}: {row}")
+    if not row["rel_err"] <= limit:      # NaN fails too
+        raise AssertionError(f"{phase} {dtype}: {row}")
+    return row
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: the coded LM head (matvec)
+# ---------------------------------------------------------------------------
+
+
+def phase_mv(seed: int, dev, gen, rng, t_dim: int = 3072,
+             r_dim: int = 32064, batch: int = 8) -> tuple[dict, list]:
+    n, s = 16, 2
+    A = torch.randn((t_dim, r_dim), generator=gen, device=dev)
+    x = torch.randn((batch, t_dim), generator=gen, device=dev)
+    masks = [np.ones(n, bool)] + straggler_masks(rng, n, s, 3)
+    result, calls = {}, 0
+
+    reset_launch_counts()
+    for dtype in (torch.float32, torch.bfloat16):
+        a_in, x_in = A.to(dtype), x.to(dtype)
+        before = launch_counts()
+        t0 = time.perf_counter()
+        plan = compile_plan(a_in, scheme="proposed", n=n, s=s,
+                            backend="cuda", seed=seed)
+        torch.cuda.synchronize()
+        compile_s = time.perf_counter() - t0
+        expect_counts("mv compile", launched_since(before), bcsr_matmul=0,
+                      cyclic_encode=1, decode_matmul=0)
+        ref = (x_in.double() @ a_in.double())            # (batch, r)
+        checks = []
+        for done in masks:
+            before = launch_counts()
+            out = plan.matvec(x_in, done)
+            expect_counts("one matvec", launched_since(before),
+                          bcsr_matmul=1, cyclic_encode=0, decode_matmul=1)
+            calls += 1
+            if out.shape != (batch, r_dim) or not torch.isfinite(out).all():
+                raise AssertionError(f"mv {dtype}: bad output {out.shape}")
+            # bf16 shards: also against the exact decode of what is stored
+            stored = None if dtype == torch.float32 else (
+                lambda rows: mv_stored_decode(plan, rows, x_in, r_dim))
+            checks.append(check_decoded("mv", dtype, plan, done, out, ref,
+                                        t_dim, stored))
+        reps = 20
+        p50 = host_p50_ms(lambda: plan.matvec(x_in, masks[1]), reps)
+        mask_dev = torch.as_tensor(masks[1], device=dev)
+        p50_dev_mask = host_p50_ms(lambda: plan.matvec(x_in, mask_dev), reps)
+        calls += 2 * reps
+        ex = plan.executor
+        cache = ex.cache
+        key = str(dtype).removeprefix("torch.")
+        result[key] = {"plan": plan, "x": x_in, "A": a_in}
+        emit("mv", dtype=key, shape=[t_dim, r_dim], batch=batch,
+             scheme="proposed", n=n, s=s, k=plan.k,
+             weight=plan.scheme.weight(), compile_s=compile_s,
+             pack_s=ex.pack_seconds, slots=ex.packed.slots,
+             coded_mb=ex.coded.numel() * ex.coded.element_size() / 2**20,
+             packed_mb=(ex.packed.a_data.numel()
+                        * ex.packed.a_data.element_size() / 2**20),
+             patterns=checks, matvec_p50_ms=p50, matvec_p50_ms_cuda_mask=p50_dev_mask,
+             cuda_mask_note="a CUDA done mask is copied to the host per "
+                            "call (one device-to-host sync)",
+             cache_hits=cache.hits, cache_misses=cache.misses)
+    counts = launch_counts()
+    expect_counts("mv", counts, bcsr_matmul=calls, cyclic_encode=2,
+                  decode_matmul=calls)
+    emit("mv", launches=counts, matvec_calls=calls, compiles=2)
+    return result, [counts]
+
+
+def kernels_mv(mv: dict, reps: int) -> list[dict]:
+    rows = []
+    for data in mv.values():
+        plan, x, A = data["plan"], data["x"], data["A"]
+        ex = plan.executor
+        done = np.ones(plan.n, bool)
+        done[[3, 11]] = False
+        rows.append(check_bcsr_mv(plan, x, done, "mv", reps))
+        # the encode of compile_plan, on the same operand
+        R = mv_encoding_matrix(plan.scheme, plan.seed)
+        sup, coef = support_tables(plan.scheme.supports, R)
+        blocks = split_block_columns(A, plan.scheme.k_A).contiguous()
+        rows.append(check_encode(
+            blocks, torch.as_tensor(sup, device=A.device),
+            torch.as_tensor(coef, device=A.device), R, "mv", 3))
+        # the decode of one matvec: Y is bcsr_matmul's output
+        dplan = ex.cache.plan(done)
+        y = bcsr_matmul(ex.packed.a_data, ex.packed.a_idx, x.T.contiguous(),
+                        dplan.rows_dev, mb=ex.packed.mb)
+        y = y.view(ex.k, -1).to(A.dtype).contiguous()
+        rows.append(check_decode(dplan.hinv_dev, y, "mv", reps))
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the paper's Fig. 4 system at device scale (matmat)
+# ---------------------------------------------------------------------------
+
+
+def block_sparse(gen, dev, t: int, r: int, zeros: float, tile: int = 32):
+    keep = torch.rand((t // tile, r // tile), generator=gen, device=dev) >= zeros
+    mask = keep.repeat_interleave(tile, 0).repeat_interleave(tile, 1)
+    return torch.randn((t, r), generator=gen, device=dev) * mask
+
+
+def phase_mm(seed: int, dev, gen, rng, t_dim: int = 8192,
+             r_dim: int = 4096, w_dim: int = 4096) -> dict:
+    n, ka, kb = 20, 4, 4
+    A = block_sparse(gen, dev, t_dim, r_dim, 0.98)
+    B = block_sparse(gen, dev, t_dim, w_dim, 0.98)
+    ref = A.double().T @ B.double()
+    masks = straggler_masks(rng, n, n - ka * kb, 2)
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    plan = compile_plan(A, scheme="proposed", n=n, k_A=ka, k_B=kb,
+                        backend="cuda", seed=seed)
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    expect_counts("mm compile", launch_counts(), bcsr_matmul=0,
+                  cyclic_encode=1, decode_matmul=0)
+    checks = []
+    for done in masks:
+        before = launch_counts()
+        out = plan.matmat(B, done)
+        expect_counts("one matmat", launched_since(before),
+                      bcsr_matmul=plan.k, cyclic_encode=1, decode_matmul=1)
+        if out.shape != (r_dim, w_dim) or not torch.isfinite(out).all():
+            raise AssertionError(f"mm: bad output {out.shape}")
+        checks.append(check_decoded("mm", torch.float32, plan, done, out,
+                                    ref, t_dim))
+    reps = 5
+    p50 = host_p50_ms(lambda: plan.matmat(B, masks[0]), reps)
+    calls = len(masks) + reps
+    counts = launch_counts()
+    expect_counts("mm", counts, bcsr_matmul=plan.k * calls,
+                  cyclic_encode=1 + calls, decode_matmul=calls)
+    ex = plan.executor
+    coded_b = encode_blocks(split_block_columns(B, kb), plan._sup_b,
+                            plan._coef_b, "cuda")
+    emit("mm", shape_a=[t_dim, r_dim], shape_b=[t_dim, w_dim],
+         tile_zeros=0.98, scheme="proposed", n=n, k_A=ka, k_B=kb,
+         s=plan.s, omega=[plan.scheme.omega_A, plan.scheme.omega_B],
+         compile_s=compile_s, pack_s=ex.pack_seconds, slots=ex.packed.slots,
+         tile_counts=list(ex.packed.tile_counts),
+         coded_a_mb=ex.coded.numel() * 4 / 2**20,
+         coded_b_mb=coded_b.numel() * 4 / 2**20,
+         patterns=checks, matmat_p50_ms=p50,
+         cache_hits=ex.cache.hits, cache_misses=ex.cache.misses,
+         launches=counts, matmat_calls=calls)
+    return {"plan": plan, "B": B, "coded_b": coded_b, "done": masks[0],
+            "counts": counts}
+
+
+def kernels_mm(mm: dict, reps: int) -> list[dict]:
+    plan, B, coded_b = mm["plan"], mm["B"], mm["coded_b"]
+    ex, sch = plan.executor, plan.scheme
+    dplan = ex.cache.plan(mm["done"])
+    worker = int(dplan.rows[0])
+    y = torch.stack([
+        bcsr_matmul(*ex.packed.worker_view(int(i)), coded_b[int(i)])
+        for i in dplan.rows]).view(ex.k, -1)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        # bf16: the same operand's shards, stored as bf16 by a bf16 plan
+        shards = plan if dtype is torch.float32 else compile_plan(
+            plan._A.to(dtype), scheme=sch, backend="cuda", seed=plan.seed)
+        rows.append(check_bcsr_worker(shards, coded_b.to(dtype), worker,
+                                      "mm", reps))
+        blocks = split_block_columns(B.to(dtype), sch.k_B).contiguous()
+        rows.append(check_encode(blocks, plan._sup_b, plan._coef_b,
+                                 plan._rb, "mm", 3))
+        rows.append(check_decode(dplan.hinv_dev, y.to(dtype).contiguous(),
+                                 "mm", reps))
+    return rows
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py needs a CUDA device; none found")
+    dev = torch.device("cuda")
+    # full f32 products everywhere, including the library yardsticks
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = nvidia_smi()
+    emit("device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
+         capability=list(torch.cuda.get_device_capability()),
+         count=torch.cuda.device_count(), torch=torch.__version__,
+         cuda=torch.version.cuda, tf32="off (matmul and cudnn)")
+
+    t0 = time.perf_counter()
+    _build.library()
+    emit("build", seconds=time.perf_counter() - t0,
+         cached=_build.build_info["cached"], library=_build.build_info["path"])
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    rng = np.random.default_rng(args.seed)
+    mv, (mv_counts,) = phase_mv(args.seed, dev, gen, rng)
+    rows = kernels_mv(mv, reps=20)
+    del mv
+    mm = phase_mm(args.seed, dev, gen, rng)
+    rows += kernels_mm(mm, reps=10)
+    mm_counts = mm["counts"]
+    del mm
+    torch.cuda.synchronize()
+
+    table = []
+    for name, (source, replaces) in SOURCES.items():
+        main_row = next(r for r in rows if r["name"] == name
+                        and r["case"] == "mv" and r["dtype"] == "float32")
+        table.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": mv_counts[name] + mm_counts[name],
+            "max_abs_err": main_row["max_abs_err"], "ms": main_row["ms"],
+            "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"],
+            "library_ms": main_row["library_ms"],
+            "shape": main_row["shape"],
+        })
+    print(json.dumps({"kernels": table}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

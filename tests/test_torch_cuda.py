@@ -1,0 +1,152 @@
+"""The CUDA half of the port's kernel tests: each hand-written kernel
+against its plain PyTorch version on a Hopper card, and the plan's
+``cuda`` backend on the card against the same plan on the CPU.
+
+Every test here needs an sm_90 device and skips elsewhere, with a
+reason.  The file imports no JAX, so it runs where the card is:
+
+    python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch._device import is_hopper
+from repro_torch.api import compile_plan
+from repro_torch.kernels import (
+    bcsr_matmul,
+    bcsr_matmul_plain,
+    cyclic_encode,
+    cyclic_encode_plain,
+    decode_matmul,
+    decode_matmul_plain,
+    launch_counts,
+    pack_bcsr,
+)
+
+TOL = dict(rtol=2e-5, atol=2e-5)          # tests/test_kernels.py:27-28
+TOL_BF16 = dict(rtol=2e-2, atol=2e-2)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def hopper():
+    if not is_hopper():
+        pytest.skip("needs an sm_90 (Hopper) CUDA device; the kernels are "
+                    "built for sm_90a")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def t(x, dtype=torch.float32):
+    return torch.as_tensor(np.asarray(x)).to(dtype)
+
+
+def close(a, b, dtype=torch.float32):
+    tol = TOL if dtype == torch.float32 else TOL_BF16
+    np.testing.assert_allclose(a.float().cpu().numpy(),
+                               b.float().cpu().numpy(), **tol)
+
+
+def block_sparse(rng, K, M, bk, bm, density):
+    mask = rng.random((K // bk, M // bm)) < density
+    mask[0, 0] = True
+    a = rng.standard_normal((K, M)).astype(np.float32)
+    return a * np.kron(mask, np.ones((bk, bm))).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,M,N,bk,bm", [
+    (96, 64, 8, 32, 32), (256, 128, 1000, 32, 32), (64, 16, 24, 8, 8),
+    (128, 64, 3, 16, 8)])
+def test_bcsr_matmul(hopper, dtype, K, M, N, bk, bm):
+    rng = np.random.default_rng(K + M + N)
+    a = block_sparse(rng, K, M, bk, bm, 0.3)
+    a_data, a_idx, _ = pack_bcsr(a, bk, bm)
+    b = t(rng.standard_normal((K - 3, N)), dtype).to(hopper)  # ragged K
+    args = (t(a_data, dtype).to(hopper), t(a_idx, torch.int32).to(hopper), b)
+    before = bcsr_matmul.launches
+    out = bcsr_matmul(*args)
+    torch.cuda.synchronize()
+    assert bcsr_matmul.launches == before + 1
+    close(out, bcsr_matmul_plain(*args), dtype)
+
+
+def test_bcsr_matmul_live_rows(hopper):
+    rng = np.random.default_rng(3)
+    n, mb, bk, bm = 6, 4, 32, 32
+    shards = [block_sparse(rng, 96, mb * bm, bk, bm, 0.5) for _ in range(n)]
+    packs = [pack_bcsr(s, bk, bm, max_nnz=3) for s in shards]
+    a_data = t(np.concatenate([p[0] for p in packs])).to(hopper)
+    a_idx = t(np.concatenate([p[1] for p in packs]), torch.int32).to(hopper)
+    rows = t([5, 0, 3], torch.int32).to(hopper)
+    b = t(rng.standard_normal((96, 8))).to(hopper)
+    out = bcsr_matmul(a_data, a_idx, b, rows, mb=mb)
+    close(out, bcsr_matmul_plain(a_data, a_idx, b, rows, mb=mb))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cyclic_encode(hopper, dtype):
+    rng = np.random.default_rng(2)
+    blocks = t(rng.standard_normal((9, 130, 33)), dtype).to(hopper)
+    sup = t(rng.integers(0, 9, size=(12, 3)), torch.int32).to(hopper)
+    coef = t(rng.standard_normal((12, 3))).to(hopper)
+    close(cyclic_encode(blocks, sup, coef),
+          cyclic_encode_plain(blocks, sup, coef), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [4, 16, 36, 64])
+def test_decode_matmul(hopper, dtype, k):
+    rng = np.random.default_rng(k)
+    h = t(rng.standard_normal((k, k))).to(hopper)
+    y = t(rng.standard_normal((k, 1031)), dtype).to(hopper)
+    close(decode_matmul(h, y), decode_matmul_plain(h, y), dtype)
+
+
+def test_wrappers_raise_instead_of_falling_back(hopper):
+    y = torch.ones(4, 8, device=hopper)
+    with pytest.raises(TypeError, match="float32"):
+        decode_matmul(torch.ones(4, 4, device=hopper, dtype=torch.float64),
+                      y)
+    with pytest.raises(ValueError, match="contiguous"):
+        decode_matmul(torch.ones(4, 4, device=hopper), y.T.contiguous().T)
+    with pytest.raises(ValueError, match="above the kernel"):
+        decode_matmul(torch.ones(65, 65, device=hopper),
+                      torch.ones(65, 8, device=hopper))
+    with pytest.raises(ValueError, match="expected"):
+        decode_matmul(torch.ones(4, 4), y)
+
+
+def test_plan_on_the_card_matches_the_cpu(hopper):
+    """compile_plan on the card (kernels) against the same plan on the
+    CPU (plain versions), mv and mm, with launch counts."""
+    rng = np.random.default_rng(4)
+    A = rng.standard_normal((200, 130)).astype(np.float32)
+    x = rng.standard_normal((5, 200)).astype(np.float32)
+    done = np.array([1, 1, 0, 1, 1, 1, 1, 0], bool)
+    card = compile_plan(t(A).to(hopper), scheme="proposed", n=8, s=2, seed=1)
+    cpu = compile_plan(t(A), scheme="proposed", n=8, s=2, seed=1,
+                       backend="cuda")
+    assert card.backend == "cuda" and card.device.type == "cuda"
+    before = launch_counts()
+    out = card.matvec(t(x).to(hopper), done)
+    after = launch_counts()
+    assert after["bcsr_matmul"] == before["bcsr_matmul"] + 1
+    assert after["decode_matmul"] == before["decode_matmul"] + 1
+    np.testing.assert_allclose(out.cpu().numpy(),
+                               cpu.matvec(t(x), done).numpy(),
+                               rtol=2e-4, atol=2e-4)
+
+    B = rng.standard_normal((200, 60)).astype(np.float32)
+    done = np.ones(20, bool)
+    done[[2, 5, 11, 17]] = False
+    card = compile_plan(t(A).to(hopper), scheme="proposed", n=20, k_A=4,
+                        k_B=4, seed=1)
+    cpu = compile_plan(t(A), scheme="proposed", n=20, k_A=4, k_B=4, seed=1,
+                       backend="cuda")
+    np.testing.assert_allclose(card.matmat(t(B).to(hopper), done).cpu()
+                               .numpy(), cpu.matmat(t(B), done).numpy(),
+                               rtol=2e-4, atol=2e-4)

@@ -1,0 +1,84 @@
+"""The PyTorch port stands alone: importing it loads neither JAX nor the
+JAX package, no port file imports them, and its entry points run on the
+card unless the caller asks for the CPU."""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|,|$)"
+    r"|from\s+repro(\.|\s))", re.M)
+
+
+def test_import_leaves_jax_and_repro_unloaded():
+    code = (
+        "import sys\n"
+        "import repro_torch, repro_torch.api, repro_torch.core, "
+        "repro_torch.runtime, repro_torch.kernels, repro_torch.convert\n"
+        "repro_torch.compile_plan\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' "
+        "or m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("path", sorted(
+    [p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")]
+    + ["chip_smoke.py"]))
+def test_no_jax_or_reference_import_in_source(path):
+    src = (ROOT / path).read_text()
+    hits = [m.group(0).strip() for m in _FORBIDDEN.finditer(src)]
+    assert not hits, f"{path} imports {hits}"
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    from repro_torch.api import compile_plan
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    A = np.ones((8, 8), np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        compile_plan(A, scheme="proposed", n=6, k_A=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        compile_plan(torch.ones(8, 8), scheme="proposed", n=6, k_A=4,
+                     device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        compile_plan(scheme="proposed", n=6, s=2)     # aggregation-only
+    # an explicit CPU request runs on the CPU
+    plan = compile_plan(A, scheme="proposed", n=6, k_A=4, device="cpu")
+    assert plan.device.type == "cpu"
+    plan = compile_plan(torch.ones(8, 8), scheme="proposed", n=6, k_A=4)
+    assert plan.device.type == "cpu" and plan.backend == "reference"
+
+
+def test_cuda_wrappers_never_fall_back():
+    """A CUDA tensor reaches the kernel path: on a machine without a
+    card the wrapper cannot even make one, so the only CPU route is a
+    CPU tensor.  A tensor on another device raises."""
+    from repro_torch.kernels import bcsr_matmul, cyclic_encode, decode_matmul
+
+    meta = torch.device("meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        decode_matmul(torch.ones(2, 2, device=meta),
+                      torch.ones(2, 4, device=meta))
+    with pytest.raises(ValueError, match="unsupported device"):
+        cyclic_encode(torch.ones(2, 4, 4, device=meta),
+                      torch.zeros(3, 1, dtype=torch.int32, device=meta),
+                      torch.ones(3, 1, device=meta))
+    with pytest.raises(ValueError, match="unsupported device"):
+        bcsr_matmul(torch.ones(1, 1, 8, 8, device=meta),
+                    torch.zeros(1, 1, dtype=torch.int32, device=meta),
+                    torch.ones(8, 4, device=meta))

@@ -1,0 +1,236 @@
+"""Kernel parity: each kernel's plain PyTorch version (what the wrapper
+runs on a CPU tensor) against ``repro.kernels.ref`` and against the
+Pallas kernel run with ``interpret=True``, over the shape, density and
+dtype sweeps of ``tests/test_kernels.py``.  The CUDA half, each kernel
+against its plain version on a Hopper card, is ``test_torch_cuda.py``:
+it imports no JAX, so it runs on a machine with the card and no JAX."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import mv_encoding_matrix, proposed_mv
+from repro.kernels import ref as jref
+from repro.kernels.bcsr_matmul import bcsr_matmul as pallas_bcsr
+from repro.kernels.cyclic_encode import cyclic_encode as pallas_encode
+from repro.kernels.decode_matmul import decode_matmul as pallas_decode
+from repro_torch.kernels import (
+    bcsr_matmul,
+    bcsr_matmul_plain,
+    coded_worker_matmul,
+    cyclic_encode,
+    cyclic_encode_plain,
+    decode_matmul,
+    decode_matmul_plain,
+    decode_unknowns,
+    encode_submatrices,
+    launch_counts,
+    pack_bcsr,
+    reset_launch_counts,
+)
+from repro_torch.kernels import ref as tref
+
+# tiny shapes: one intra-op thread is enough, and idle OpenMP threads
+# would spin on cores that the suite's timing-sensitive tests share
+torch.set_num_threads(1)
+
+TOL = dict(rtol=2e-5, atol=2e-5)
+TOL_BF16 = dict(rtol=2e-2, atol=2e-2)
+
+
+def make_block_sparse(rng, K, M, bk, bm, density, dtype=np.float32):
+    mask = rng.random((K // bk, M // bm)) < density
+    if not mask.any():
+        mask[0, 0] = True
+    a = rng.standard_normal((K, M)).astype(dtype)
+    return a * np.kron(mask, np.ones((bk, bm))).astype(dtype)
+
+
+def t(x, dtype=torch.float32):
+    return torch.as_tensor(np.asarray(x)).to(dtype)
+
+
+def close(a, b, tol=TOL):
+    np.testing.assert_allclose(np.asarray(a, np.float32),
+                               np.asarray(b, np.float32), **tol)
+
+
+class TestBcsrMatmul:
+    @pytest.mark.parametrize("K,M,N,bk,bm,bn", [
+        (64, 32, 48, 8, 8, 16),
+        (128, 128, 128, 16, 16, 128),
+        (256, 64, 96, 32, 16, 32),
+        (32, 32, 32, 32, 32, 32),   # single block
+        (64, 16, 8, 8, 8, 8),
+    ])
+    @pytest.mark.parametrize("density", [0.15, 0.5, 1.0])
+    def test_shape_density_sweep(self, K, M, N, bk, bm, bn, density):
+        rng = np.random.default_rng(K * 7 + M * 3 + N + int(density * 100))
+        a = make_block_sparse(rng, K, M, bk, bm, density)
+        b = rng.standard_normal((K, N)).astype(np.float32)
+        a_data, a_idx, j = pack_bcsr(a, bk, bm)
+        r_data, r_idx, r_j = jref.pack_bcsr(a, bk, bm)
+        np.testing.assert_array_equal(a_data, r_data)
+        np.testing.assert_array_equal(a_idx, r_idx)
+        assert j == r_j
+        out = bcsr_matmul(t(a_data), t(a_idx, torch.int32), t(b))
+        assert out.dtype == torch.float32
+        close(out, jref.bcsr_matmul_ref(a, b))
+        close(out, pallas_bcsr(jnp.asarray(a_data), jnp.asarray(a_idx),
+                               jnp.asarray(b), bn=bn, interpret=True))
+
+    @pytest.mark.parametrize("dtype,tol", [(torch.float32, TOL),
+                                           (torch.bfloat16, TOL_BF16)])
+    def test_dtype_sweep(self, dtype, tol):
+        rng = np.random.default_rng(0)
+        jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+        a = make_block_sparse(rng, 64, 32, 8, 8, 0.4)
+        b = rng.standard_normal((64, 32)).astype(np.float32)
+        a_data, a_idx, _ = pack_bcsr(a, 8, 8)
+        out = bcsr_matmul(t(a_data, dtype), t(a_idx, torch.int32), t(b, dtype))
+        assert out.dtype == torch.float32  # f32 accumulation contract
+        ref = pallas_bcsr(jnp.asarray(a_data, jdt), jnp.asarray(a_idx),
+                          jnp.asarray(b, jdt), bn=16, interpret=True)
+        close(out, ref, tol)
+        close(out, jref.bcsr_matmul_ref(jnp.asarray(a, jdt),
+                                        jnp.asarray(b, jdt)), tol)
+
+    def test_packed_ref_matches_dense_ref(self):
+        rng = np.random.default_rng(3)
+        a = make_block_sparse(rng, 96, 48, 8, 16, 0.3)
+        b = rng.standard_normal((96, 24)).astype(np.float32)
+        a_data, a_idx, _ = pack_bcsr(a, 8, 16)
+        close(tref.bcsr_matmul_packed_ref(t(a_data), t(a_idx), t(b)),
+              jref.bcsr_matmul_packed_ref(jnp.asarray(a_data),
+                                          jnp.asarray(a_idx), jnp.asarray(b)))
+        close(tref.bcsr_matmul_ref(t(a), t(b)), jref.bcsr_matmul_ref(a, b))
+
+    def test_live_rows_and_ragged_edges(self):
+        """``rows`` picks workers' block-rows out of the full operand, and
+        a B whose K is not a multiple of bk is masked, not padded."""
+        rng = np.random.default_rng(4)
+        n, mb, bk, bm = 5, 3, 8, 8
+        shards = [make_block_sparse(rng, 24, mb * bm, bk, bm, 0.5)
+                  for _ in range(n)]
+        packs = [pack_bcsr(s, bk, bm, max_nnz=3) for s in shards]
+        a_data = np.concatenate([p[0] for p in packs])
+        a_idx = np.concatenate([p[1] for p in packs])
+        rows = np.array([4, 0, 2], np.int32)
+        b = rng.standard_normal((21, 5)).astype(np.float32)   # K=21 < 24
+        out = bcsr_matmul(t(a_data), t(a_idx, torch.int32), t(b),
+                          t(rows, torch.int32), mb=mb)
+        want = np.concatenate([shards[i][:21].T @ b for i in rows])
+        close(out, want, dict(rtol=1e-5, atol=1e-5))
+        dst = torch.zeros_like(out)
+        bcsr_matmul(t(a_data), t(a_idx, torch.int32), t(b),
+                    t(rows, torch.int32), mb=mb, out=dst)
+        np.testing.assert_array_equal(dst.numpy(), out.numpy())
+
+    def test_flop_saving_structure(self):
+        rng = np.random.default_rng(4)
+        _, _, j_sparse = pack_bcsr(make_block_sparse(rng, 128, 64, 8, 8, 0.2),
+                                   8, 8)
+        _, _, j_dense = pack_bcsr(make_block_sparse(rng, 128, 64, 8, 8, 1.0),
+                                  8, 8)
+        assert j_sparse < j_dense / 2
+
+    def test_ops_wrapper(self):
+        rng = np.random.default_rng(5)
+        a = make_block_sparse(rng, 64, 32, 8, 8, 0.4)
+        b = rng.standard_normal((64, 16)).astype(np.float32)
+        out = coded_worker_matmul(a, b, bk=8, bm=8, device="cpu")
+        close(out, jref.bcsr_matmul_ref(a, b))
+
+
+class TestCyclicEncode:
+    @pytest.mark.parametrize("k,T,C,n,w,bt", [
+        (4, 32, 8, 6, 2, 16),
+        (9, 64, 16, 12, 3, 32),
+        (6, 128, 4, 10, 4, 128),
+        (3, 16, 32, 5, 2, 16),
+    ])
+    def test_shape_sweep(self, k, T, C, n, w, bt):
+        rng = np.random.default_rng(k * 1000 + T + C + n + w)
+        blocks = rng.standard_normal((k, T, C)).astype(np.float32)
+        sup = rng.integers(0, k, size=(n, w)).astype(np.int32)
+        coef = rng.standard_normal((n, w)).astype(np.float32)
+        out = cyclic_encode(t(blocks), t(sup, torch.int32), t(coef))
+        assert out.dtype == torch.float32 and out.shape == (n, T, C)
+        close(out, jref.cyclic_encode_ref(jnp.asarray(blocks),
+                                          jnp.asarray(sup), jnp.asarray(coef)))
+        close(out, pallas_encode(jnp.asarray(blocks), jnp.asarray(sup),
+                                 jnp.asarray(coef), bt=bt, interpret=True))
+
+    def test_bf16_blocks(self):
+        rng = np.random.default_rng(1)
+        blocks = rng.standard_normal((4, 32, 8)).astype(np.float32)
+        sup = rng.integers(0, 4, size=(6, 2)).astype(np.int32)
+        coef = rng.standard_normal((6, 2)).astype(np.float32)
+        out = cyclic_encode(t(blocks, torch.bfloat16), t(sup, torch.int32),
+                            t(coef))
+        ref = pallas_encode(jnp.asarray(blocks, jnp.bfloat16),
+                            jnp.asarray(sup), jnp.asarray(coef), bt=16,
+                            interpret=True)
+        close(out, ref, TOL_BF16)
+
+    @pytest.mark.parametrize("seed", [0, 1, 12345, 2**31 - 1])
+    def test_matches_encoding_matrix_semantics(self, seed):
+        """encode == R @ blocks for the Alg. 1 scheme."""
+        rng = np.random.default_rng(seed)
+        sch = proposed_mv(6, 4)
+        R = mv_encoding_matrix(sch, seed=seed % 101)
+        sup = np.array([list(s) for s in sch.supports], dtype=np.int32)
+        coef = np.take_along_axis(R, sup, axis=1).astype(np.float32)
+        blocks = rng.standard_normal((4, 32, 8)).astype(np.float32)
+        out = encode_submatrices(blocks, sup, coef, device="cpu")
+        np.testing.assert_allclose(out.numpy(),
+                                   np.einsum("nk,ktc->ntc", R, blocks),
+                                   rtol=1e-4, atol=1e-4)
+
+
+class TestDecodeMatmul:
+    @pytest.mark.parametrize("k,P,bp", [(4, 64, 16), (9, 512, 512),
+                                        (16, 256, 64), (36, 72, 36)])
+    def test_shape_sweep(self, k, P, bp):
+        rng = np.random.default_rng(k * 1000 + P)
+        h = rng.standard_normal((k, k)).astype(np.float32)
+        y = rng.standard_normal((k, P)).astype(np.float32)
+        out = decode_matmul(t(h), t(y))
+        close(out, jref.decode_matmul_ref(h, y))
+        close(out, pallas_decode(jnp.asarray(h), jnp.asarray(y), bp=bp,
+                                 interpret=True))
+
+    def test_end_to_end_decode(self):
+        """Hinv from a real scheme pattern: decode reproduces the
+        uncoded blocks."""
+        rng = np.random.default_rng(7)
+        R = mv_encoding_matrix(proposed_mv(6, 4), seed=3)
+        alive = [0, 2, 3, 5]
+        hinv = np.linalg.inv(R[alive]).astype(np.float32)
+        u_true = rng.standard_normal((4, 64)).astype(np.float32)
+        y = (R[alive] @ u_true).astype(np.float32)
+        u = decode_unknowns(hinv, y, device="cpu")
+        np.testing.assert_allclose(u.numpy(), u_true, rtol=1e-4, atol=1e-4)
+
+
+def test_cpu_tensors_take_the_plain_version():
+    """On the CPU the wrappers run the plain versions and launch
+    nothing: the counters count launches only."""
+    reset_launch_counts()
+    rng = np.random.default_rng(8)
+    a = make_block_sparse(rng, 32, 16, 8, 8, 0.5)
+    a_data, a_idx, _ = pack_bcsr(a, 8, 8)
+    b = t(rng.standard_normal((32, 4)))
+    args = (t(a_data), t(a_idx, torch.int32), b)
+    np.testing.assert_array_equal(bcsr_matmul(*args).numpy(),
+                                  bcsr_matmul_plain(*args).numpy())
+    blocks, sup = t(rng.standard_normal((3, 8, 4))), t([[0, 2]], torch.int32)
+    coef = t([[0.5, -1.0]])
+    np.testing.assert_array_equal(cyclic_encode(blocks, sup, coef).numpy(),
+                                  cyclic_encode_plain(blocks, sup, coef).numpy())
+    h, y = t(rng.standard_normal((3, 3))), t(rng.standard_normal((3, 10)))
+    np.testing.assert_array_equal(decode_matmul(h, y).numpy(),
+                                  decode_matmul_plain(h, y).numpy())
+    assert launch_counts() == {"bcsr_matmul": 0, "cyclic_encode": 0,
+                               "decode_matmul": 0}
