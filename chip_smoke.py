@@ -20,16 +20,21 @@ Phases, one JSON line each:
      ``plan.matmat`` under two random straggler patterns, held against
      A^T B in f64;
   2. kernels -- after each of phases 3 and 4, every kernel held against
-     its plain PyTorch version at that phase's shapes, in f32 and bf16,
-     with its time, the plain version's, one PyTorch library call's, and
-     the least time the card could take (the bound).
+     its plain PyTorch version on the inputs that phase passes it (the
+     encode on ``split_block_columns``' strided view; the matmat's one
+     grouped ``bcsr_matmul`` over the k live workers, and one worker
+     alone, each with the f32 coded B a plan's matmat passes), in f32
+     and with bf16 shards, with its time, the plain version's, one
+     PyTorch library call's, and the least time the card could take
+     (the bound: bytes over 3.35 TB/s, or flops over 67 TFLOP/s f32 and
+     989 TFLOP/s for a bf16 x bf16 product).
 
 Launch counters are set to 0 just before each main path and read just
 after: every encode must have gone through ``cyclic_encode``, every
-worker product through ``bcsr_matmul`` and every decode through
-``decode_matmul``.  Any failure raises and exits non-zero.  The last
-three lines are the kernel table, the ``nvidia-smi`` line and
-``{"ok": true, "device": {...}}``.
+worker product through ``bcsr_matmul`` (one launch per matvec and per
+matmat) and every decode through ``decode_matmul``.  Any failure raises
+and exits non-zero.  The last three lines are the kernel table, the
+``nvidia-smi`` line and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -62,9 +67,11 @@ from repro_torch.kernels import (  # noqa: E402
 )
 from repro_torch.runtime import encode_blocks, support_tables  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 rate and f32 FFMA rate
+# H100 SXM peaks (NVIDIA data sheet): HBM3 rate, f32 FFMA rate, and the
+# dense bf16 tensor-core rate, the least time a bf16 x bf16 product needs
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 # tolerances of tests/test_kernels.py (allclose: |a-b| <= atol + rtol|b|)
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # end-to-end relative error bounds (examples/quickstart.py asserts 1e-3)
@@ -121,15 +128,24 @@ def rel_err(out: torch.Tensor, ref: torch.Tensor) -> float:
     return float((out.double() - ref).abs().max() / ref.abs().max())
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float, flops_per_s: float
+          ) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def peak_rate(*operands: torch.Tensor) -> float:
+    """The card's peak for a product of these operands: bf16 tensor cores
+    when every factor is bf16, f32 FFMA otherwise."""
+    if all(t.dtype == torch.bfloat16 for t in operands):
+        return BF16_FLOPS_PER_S
+    return F32_FLOPS_PER_S
 
 
 def check_kernel(name: str, case: str, kernel, plain, library, *,
                  dtype: torch.dtype, nbytes: float, flops: float,
-                 reps: int, plain_reps: int) -> dict:
+                 flops_per_s: float, reps: int, plain_reps: int) -> dict:
     """Hold one kernel against its plain version; time all three."""
     got, want = kernel(), plain()
     torch.cuda.synchronize()
@@ -143,7 +159,10 @@ def check_kernel(name: str, case: str, kernel, plain, library, *,
         "ms": cuda_ms(kernel, reps), "plain_ms": cuda_ms(plain, plain_reps),
         "library_ms": None if library is None else cuda_ms(library, reps),
     }
-    row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
+    row["bound_ms"], row["bound_by"] = bound(nbytes, flops, flops_per_s)
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    row["vs_library"] = (None if library is None
+                         else row["ms"] / row["library_ms"])
     row["bytes"], row["flops"] = nbytes, flops
     emit("kernels", **row)
     if not row["ok"]:
@@ -177,22 +196,24 @@ def expect_counts(where: str, counts: dict, **want) -> None:
 
 
 def bcsr_bytes(packed, workers, b: torch.Tensor, n_out_rows: int) -> float:
-    """Bytes the product must move: the live workers' nonzero tiles and
-    their slot indices, the B rows those tiles select, C written once."""
+    """Bytes the product must move: the live workers' nonzero tiles, their
+    slot indices and counts, the B rows those tiles select (per worker
+    when B is per worker, else their union), C written once."""
     tiles = sum(packed.tile_counts[int(i)] for i in workers)
     esz = packed.a_data.element_size()
-    idx = packed.a_idx.view(packed.n, packed.mb, -1)
-    kblocks = set()
-    for i in workers:
-        counts = packed.slot_counts[int(i)]
-        rows_i = idx[int(i)].cpu().numpy()
-        for m, cnt in enumerate(counts):
-            kblocks.update(rows_i[m, :cnt].tolist())
-    b_rows = min(len(kblocks) * packed.bk, b.shape[0])
+    idx = packed.a_idx.view(packed.n, packed.mb, -1).cpu().numpy()
+    per_worker = b.ndim == 3
+    kblocks = [set() for _ in workers] if per_worker else [set()]
+    for j, i in enumerate(workers):
+        seen = kblocks[j if per_worker else 0]
+        for m, cnt in enumerate(packed.slot_counts[int(i)]):
+            seen.update(idx[int(i), m, :cnt].tolist())
+    k_dim, n_dim = b.shape[-2:]
+    b_rows = sum(min(len(s) * packed.bk, k_dim) for s in kblocks)
     return (tiles * packed.bk * packed.bm * esz
-            + len(workers) * packed.mb * packed.slots * 4
-            + b_rows * b.shape[1] * b.element_size()
-            + n_out_rows * b.shape[1] * 4)
+            + tiles * 4 + len(workers) * packed.mb * 4
+            + b_rows * n_dim * b.element_size()
+            + n_out_rows * n_dim * 4)
 
 
 def bcsr_flops(packed, workers, n_cols: int) -> float:
@@ -209,31 +230,63 @@ def check_bcsr_mv(plan, x, done, case, reps) -> dict:
     dtype = packed.a_data.dtype
     return check_kernel(
         "bcsr_matmul", case,
-        lambda: bcsr_matmul(packed.a_data, packed.a_idx, b, rows, mb=packed.mb),
+        lambda: bcsr_matmul(packed.a_data, packed.a_idx, b, rows,
+                            mb=packed.mb, counts=packed.counts),
         lambda: bcsr_matmul_plain(packed.a_data, packed.a_idx, b, rows,
-                                  mb=packed.mb),
+                                  mb=packed.mb, counts=packed.counts),
         lambda: torch.matmul(live.transpose(1, 2), b.to(live.dtype)),
         dtype=dtype, nbytes=bcsr_bytes(packed, dplan.rows, b,
                                        ex.k * packed.c_pad),
         flops=bcsr_flops(packed, dplan.rows, b.shape[1]),
-        reps=reps, plain_reps=3)
+        flops_per_s=peak_rate(packed.a_data, b), reps=reps, plain_reps=3)
 
 
 def check_bcsr_worker(plan, coded_b, worker, case, reps) -> dict:
+    """One worker's product alone, the matmat's launch before products
+    were grouped, kept for comparison with that launch.  The library
+    call gets the dense shard widened to f32 outside the timing, as in
+    check_bcsr_grouped."""
     ex = plan.executor
     packed = ex.packed
     a_data, a_idx = packed.worker_view(worker)
+    counts = packed.counts[worker * packed.mb:(worker + 1) * packed.mb]
     b = coded_b[worker]
-    shard = ex.coded[worker]
+    shard = ex.coded[worker].T.to(b.dtype)
     return check_kernel(
         "bcsr_matmul", case,
-        lambda: bcsr_matmul(a_data, a_idx, b),
-        lambda: bcsr_matmul_plain(a_data, a_idx, b),
-        lambda: torch.matmul(shard.T.to(b.dtype), b),
+        lambda: bcsr_matmul(a_data, a_idx, b, counts=counts),
+        lambda: bcsr_matmul_plain(a_data, a_idx, b, counts=counts),
+        lambda: torch.matmul(shard, b),
         dtype=a_data.dtype, nbytes=bcsr_bytes(packed, [worker], b,
                                               packed.c_pad),
         flops=bcsr_flops(packed, [worker], b.shape[1]),
-        reps=reps, plain_reps=3)
+        flops_per_s=peak_rate(a_data, b), reps=reps, plain_reps=3)
+
+
+def check_bcsr_grouped(plan, coded_b, done, case, reps) -> dict:
+    """The matmat's one launch over the k live workers, each with its own
+    coded B shard; the yardstick is torch.bmm of the dense live shards.
+    torch.bmm takes one dtype, so bf16 shards are widened to the f32 of
+    the coded B outside the timing: the library computes the same
+    function on the same values."""
+    ex = plan.executor
+    packed, dplan = ex.packed, ex.cache.plan(done)
+    rows = dplan.rows_dev
+    live_a = ex.coded[rows.long()].transpose(1, 2)        # (k, c, t)
+    live_a = live_a.to(coded_b.dtype)
+    live_b = coded_b[rows.long()]                         # (k, t, cb)
+    return check_kernel(
+        "bcsr_matmul", case,
+        lambda: bcsr_matmul(packed.a_data, packed.a_idx, coded_b, rows,
+                            mb=packed.mb, counts=packed.counts),
+        lambda: bcsr_matmul_plain(packed.a_data, packed.a_idx, coded_b, rows,
+                                  mb=packed.mb, counts=packed.counts),
+        lambda: torch.bmm(live_a, live_b),
+        dtype=packed.a_data.dtype,
+        nbytes=bcsr_bytes(packed, dplan.rows, coded_b, ex.k * packed.c_pad),
+        flops=bcsr_flops(packed, dplan.rows, coded_b.shape[2]),
+        flops_per_s=peak_rate(packed.a_data, coded_b), reps=reps,
+        plain_reps=2)
 
 
 def check_encode(blocks, sup, coef, R, case, reps) -> dict:
@@ -248,7 +301,7 @@ def check_encode(blocks, sup, coef, R, case, reps) -> dict:
         lambda: cyclic_encode_plain(blocks, sup, coef),
         lambda: torch.einsum("nk,ktc->ntc", Rd, blocks),
         dtype=blocks.dtype, nbytes=nbytes, flops=2.0 * n * w * t * c,
-        reps=reps, plain_reps=2)
+        flops_per_s=F32_FLOPS_PER_S, reps=reps, plain_reps=2)
 
 
 def check_decode(hinv, y, case, reps) -> dict:
@@ -260,7 +313,7 @@ def check_decode(hinv, y, case, reps) -> dict:
         lambda: decode_matmul_plain(hinv, y),
         lambda: torch.matmul(hinv.to(y.dtype), y),
         dtype=y.dtype, nbytes=nbytes, flops=2.0 * k * k * p,
-        reps=reps, plain_reps=reps)
+        flops_per_s=F32_FLOPS_PER_S, reps=reps, plain_reps=reps)
 
 
 # ---------------------------------------------------------------------------
@@ -390,17 +443,18 @@ def kernels_mv(mv: dict, reps: int) -> list[dict]:
         done = np.ones(plan.n, bool)
         done[[3, 11]] = False
         rows.append(check_bcsr_mv(plan, x, done, "mv", reps))
-        # the encode of compile_plan, on the same operand
+        # the encode of compile_plan, on the view it reads
         R = mv_encoding_matrix(plan.scheme, plan.seed)
         sup, coef = support_tables(plan.scheme.supports, R)
-        blocks = split_block_columns(A, plan.scheme.k_A).contiguous()
+        blocks = split_block_columns(A, plan.scheme.k_A)
         rows.append(check_encode(
             blocks, torch.as_tensor(sup, device=A.device),
             torch.as_tensor(coef, device=A.device), R, "mv", 3))
         # the decode of one matvec: Y is bcsr_matmul's output
         dplan = ex.cache.plan(done)
         y = bcsr_matmul(ex.packed.a_data, ex.packed.a_idx, x.T.contiguous(),
-                        dplan.rows_dev, mb=ex.packed.mb)
+                        dplan.rows_dev, mb=ex.packed.mb,
+                        counts=ex.packed.counts)
         y = y.view(ex.k, -1).to(A.dtype).contiguous()
         rows.append(check_decode(dplan.hinv_dev, y, "mv", reps))
     return rows
@@ -438,7 +492,7 @@ def phase_mm(seed: int, dev, gen, rng, t_dim: int = 8192,
         before = launch_counts()
         out = plan.matmat(B, done)
         expect_counts("one matmat", launched_since(before),
-                      bcsr_matmul=plan.k, cyclic_encode=1, decode_matmul=1)
+                      bcsr_matmul=1, cyclic_encode=1, decode_matmul=1)
         if out.shape != (r_dim, w_dim) or not torch.isfinite(out).all():
             raise AssertionError(f"mm: bad output {out.shape}")
         checks.append(check_decoded("mm", torch.float32, plan, done, out,
@@ -447,7 +501,7 @@ def phase_mm(seed: int, dev, gen, rng, t_dim: int = 8192,
     p50 = host_p50_ms(lambda: plan.matmat(B, masks[0]), reps)
     calls = len(masks) + reps
     counts = launch_counts()
-    expect_counts("mm", counts, bcsr_matmul=plan.k * calls,
+    expect_counts("mm", counts, bcsr_matmul=calls,
                   cyclic_encode=1 + calls, decode_matmul=calls)
     ex = plan.executor
     coded_b = encode_blocks(split_block_columns(B, kb), plan._sup_b,
@@ -469,19 +523,23 @@ def phase_mm(seed: int, dev, gen, rng, t_dim: int = 8192,
 def kernels_mm(mm: dict, reps: int) -> list[dict]:
     plan, B, coded_b = mm["plan"], mm["B"], mm["coded_b"]
     ex, sch = plan.executor, plan.scheme
-    dplan = ex.cache.plan(mm["done"])
+    done = mm["done"]
+    dplan = ex.cache.plan(done)
     worker = int(dplan.rows[0])
-    y = torch.stack([
-        bcsr_matmul(*ex.packed.worker_view(int(i)), coded_b[int(i)])
-        for i in dplan.rows]).view(ex.k, -1)
+    y = bcsr_matmul(ex.packed.a_data, ex.packed.a_idx, coded_b,
+                    dplan.rows_dev, mb=ex.packed.mb,
+                    counts=ex.packed.counts).view(ex.k, -1)
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
-        # bf16: the same operand's shards, stored as bf16 by a bf16 plan
+        # bf16: the same operand's shards, stored as bf16 by a bf16 plan,
+        # times the f32 coded B that plan's matmat passes
         shards = plan if dtype is torch.float32 else compile_plan(
             plan._A.to(dtype), scheme=sch, backend="cuda", seed=plan.seed)
-        rows.append(check_bcsr_worker(shards, coded_b.to(dtype), worker,
-                                      "mm", reps))
-        blocks = split_block_columns(B.to(dtype), sch.k_B).contiguous()
+        rows.append(check_bcsr_grouped(shards, coded_b, done, "mm", reps))
+        rows.append(check_bcsr_worker(shards, coded_b, worker, "mm-worker",
+                                      reps))
+        del shards
+        blocks = split_block_columns(B.to(dtype), sch.k_B)
         rows.append(check_encode(blocks, plan._sup_b, plan._coef_b,
                                  plan._rb, "mm", 3))
         rows.append(check_decode(dplan.hinv_dev, y.to(dtype).contiguous(),

@@ -35,12 +35,14 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    # a_data, a_dtype, a_idx, b, b_dtype, rows, c, n_out, mb, n_src, J,
-    # bk, bm, K, N, bn, rpt, stream
-    "repro_bcsr_matmul": (_P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
-                          _I, _I, _I, _I, _I, _P),
-    # blocks, dtype, sup, coef, out, k, plane, n, w, stream
-    "repro_cyclic_encode": (_P, _I, _P, _P, _P, _I, _LL, _I, _I, _P),
+    # a_data, a_dtype, a_idx, counts, b, b_dtype, b_worker_stride, rows, c,
+    # n_out, mb, n_workers, J, K, N, device, stream
+    "repro_bcsr_matmul": (_P, _I, _P, _P, _P, _I, _LL, _P, _P, _I, _I, _I,
+                          _I, _I, _I, _I, _P),
+    # blocks, dtype, block_stride, row_stride, sup, coef, out, k, T, C, n,
+    # w, elems, device, stream
+    "repro_cyclic_encode": (_P, _I, _LL, _LL, _P, _P, _P, _I, _I, _I, _I,
+                            _I, _I, _I, _P),
     # hinv, y, y_dtype, u, k, P, stream
     "repro_decode_matmul": (_P, _P, _I, _P, _I, _LL, _P),
 }

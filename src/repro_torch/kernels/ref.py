@@ -27,19 +27,41 @@ def bcsr_matmul_ref(a_dense: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def bcsr_matmul_packed_ref(a_data: torch.Tensor, a_idx: torch.Tensor,
-                           b: torch.Tensor) -> torch.Tensor:
+                           b: torch.Tensor, rows: torch.Tensor | None = None,
+                           *, mb: int = 1,
+                           counts: torch.Tensor | None = None) -> torch.Tensor:
     """The same product from the packed form, by gather and einsum.
 
-    a_data : (Mb, J, bk, bm)   per-output-block-column padded nonzero tiles
-    a_idx  : (Mb, J) int32     K-block index of each slot (pad -> 0 data)
-    b      : (K, N), K a multiple of bk
+    a_data : (R, J, bk, bm)    per-output-block-column padded nonzero tiles
+    a_idx  : (R, J) int32      K-block index of each slot (pad -> 0 data)
+    b      : (K, N) shared, or (R // mb, K, N) one per worker; any K
+    rows   : live workers; output block-row g reads packed block-row
+             rows[g // mb] * mb + g % mb (all R block-rows when None)
+    counts : (R,) real slots per packed block-row; slots at or past it
+             are masked out, whatever they hold (None: all J)
     """
-    mb, _, bk, bm = a_data.shape
-    n = b.shape[1]
-    bblocks = b.to(F32).reshape(-1, bk, n)                  # (Kb, bk, N)
-    gathered = bblocks[a_idx.long()]                         # (Mb, J, bk, N)
+    n_src, J, bk, bm = a_data.shape
+    dev = a_data.device
+    workers = (torch.arange(n_src // mb, device=dev) if rows is None
+               else rows.long())
+    src = (workers[:, None] * mb + torch.arange(mb, device=dev)).reshape(-1)
+    a_data, a_idx = a_data[src], a_idx[src].long()
+    if counts is not None:
+        live = torch.arange(J, device=dev) < counts[src].long()[:, None]
+        a_data = a_data.masked_fill(~live[:, :, None, None], 0)
+        a_idx = a_idx.masked_fill(~live, 0)
+    per_worker = b.ndim == 3
+    bb = b if per_worker else b[None]
+    pad = (-bb.shape[1]) % bk
+    if pad:
+        bb = torch.nn.functional.pad(bb, (0, 0, 0, pad))
+    n = bb.shape[2]
+    bblocks = bb.to(F32).reshape(bb.shape[0], -1, bk, n)   # (W, Kb, bk, N)
+    wid = (workers.repeat_interleave(mb) if per_worker
+           else torch.zeros_like(src))
+    gathered = bblocks[wid[:, None], a_idx]                  # (G, J, bk, N)
     out = torch.einsum("mjkc,mjkn->mcn", a_data.to(F32), gathered)
-    return out.reshape(mb * bm, n)
+    return out.reshape(-1, n)
 
 
 # ---------------------------------------------------------------------------

@@ -113,7 +113,10 @@ def encode_blocks(blocks: torch.Tensor, sup, coef,
     sup = as_tensor(sup, dev, torch.int32).contiguous()
     coef = as_tensor(coef, dev, torch.float32).contiguous()
     if backend == "cuda":
-        return cyclic_encode(blocks.contiguous(), sup, coef)
+        # the kernel reads a strided view (split_block_columns') in place
+        if blocks.stride(-1) != 1:
+            blocks = blocks.contiguous()
+        return cyclic_encode(blocks, sup, coef)
     return cyclic_encode_ref(blocks, sup, coef)
 
 
@@ -147,6 +150,9 @@ class CodedExecutor:
         self.cache: DecodeCache | None = None
         self.pack_seconds = 0.0
         self._bsr = None            # lazy scipy BSR shards ("packed")
+        if self.backend == "cuda" and {bk, bm} - {None, CUDA_TILE}:
+            raise ValueError(f"the cuda backend packs {CUDA_TILE}x{CUDA_TILE} "
+                             f"tiles, got bk={bk}, bm={bm}")
         if self.backend != "reference":
             tile = CUDA_TILE if self.backend == "cuda" else HOST_TILE
             t0 = time.perf_counter()
@@ -217,7 +223,8 @@ class CodedExecutor:
         if self.backend == "cuda":
             # one launch over the k live workers, read in place
             y = bcsr_matmul(packed.a_data, packed.a_idx, xb.T.contiguous(),
-                            plan.rows_dev, mb=packed.mb)
+                            plan.rows_dev, mb=packed.mb,
+                            counts=packed.counts)
             u = decode_matmul(plan.hinv_dev,
                               y.view(self.k, packed.c_pad * b))
             u = u.view(self.k, packed.c_pad, b)[:, : packed.c]
@@ -260,12 +267,10 @@ class CodedExecutor:
         cb = coded_b.shape[2]
         # stragglers' products are never computed: fastest-k only
         if self.backend == "cuda":
-            coded_b = coded_b.contiguous()
-            y = torch.empty((self.k, packed.c_pad, cb), dtype=torch.float32,
-                            device=self.device)
-            for j, i in enumerate(plan.rows):
-                a_data, a_idx = packed.worker_view(int(i))
-                bcsr_matmul(a_data, a_idx, coded_b[int(i)], out=y[j])
+            # one launch: live worker j's block-rows times its own B shard
+            y = bcsr_matmul(packed.a_data, packed.a_idx,
+                            coded_b.contiguous(), plan.rows_dev,
+                            mb=packed.mb, counts=packed.counts)
             # decode the padded columns too (zeros in, zeros out) rather
             # than copy Y to drop them
             u = decode_matmul(plan.hinv_dev, y.view(self.k, -1))

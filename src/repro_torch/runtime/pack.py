@@ -14,8 +14,9 @@ one packed operand shared by every backend of the executor:
     nonzero-tile count over block-columns) and concatenated along the
     output-block axis, so one kernel launch computes every live
     worker's product ``coded_i^T @ B`` when B is shared (matvec);
-  * per-worker views are slices for the matmat path, where each worker
-    multiplies a different B shard;
+  * ``counts`` holds each block-row's real slot count on the device, so
+    the ``cuda`` kernel walks only real tiles; with B given per worker,
+    the matmat's k products are one launch as well;
   * ``tile_counts`` records the true nonzero-tile count per worker --
     the quantity that scales with omega.
 
@@ -42,10 +43,14 @@ class PackedShards:
 
     a_data : (n * Mb, J, bk, bm)  nonzero tiles, zero-padded slots
     a_idx  : (n * Mb, J) int32    K-block index per slot (pad slots -> 0)
+    counts : (n * Mb,) int32      real slots per packed block-row, on the
+                                  shards' device (``slot_counts`` flat),
+                                  so the kernel skips the pad slots
     """
 
     a_data: torch.Tensor
     a_idx: torch.Tensor
+    counts: torch.Tensor
     n: int                 # workers
     mb: int                # output block-columns per worker (c_pad / bm)
     bk: int
@@ -117,6 +122,7 @@ def pack_coded_blocks(coded, bk: int = 8, bm: int = 8) -> PackedShards:
     return PackedShards(
         a_data=a_data.reshape(n * mb, j, bk, bm).contiguous(),
         a_idx=a_idx.reshape(n * mb, j).contiguous(),
+        counts=counts.reshape(n * mb).to(torch.int32).contiguous(),
         n=n, mb=mb, bk=bk, bm=bm, t=t, c=c, t_pad=t_pad, c_pad=c_pad,
         tile_counts=tuple(int(x) for x in counts_host.sum(dim=1)),
         slot_counts=tuple(tuple(int(x) for x in row)

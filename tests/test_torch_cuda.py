@@ -67,6 +67,11 @@ def test_bcsr_matmul(hopper, dtype, K, M, N, bk, bm):
     a_data, a_idx, _ = pack_bcsr(a, bk, bm)
     b = t(rng.standard_normal((K - 3, N)), dtype).to(hopper)  # ragged K
     args = (t(a_data, dtype).to(hopper), t(a_idx, torch.int32).to(hopper), b)
+    if (bk, bm) != (32, 32):
+        # the kernel is specialised on the cuda backend's tile
+        with pytest.raises(ValueError, match="32x32"):
+            bcsr_matmul(*args)
+        return
     before = bcsr_matmul.launches
     out = bcsr_matmul(*args)
     torch.cuda.synchronize()
@@ -85,6 +90,108 @@ def test_bcsr_matmul_live_rows(hopper):
     b = t(rng.standard_normal((96, 8))).to(hopper)
     out = bcsr_matmul(a_data, a_idx, b, rows, mb=mb)
     close(out, bcsr_matmul_plain(a_data, a_idx, b, rows, mb=mb))
+
+
+def packed_workers(rng, n, mb, K, dtype):
+    """n workers' shards (K, mb * 32), packed to J = K / 32 slots with the
+    packer's zero pads, and each block-row's real slot count."""
+    shards = [block_sparse(rng, K, mb * 32, 32, 32, 0.3) for _ in range(n)]
+    packs = [pack_bcsr(s, 32, 32, max_nnz=K // 32) for s in shards]
+    counts = np.concatenate([
+        (np.abs(s.reshape(K // 32, 32, mb, 32)).max(axis=(1, 3)) > 0)
+        .sum(axis=0) for s in shards])
+    return (shards,
+            t(np.concatenate([p[0] for p in packs]), dtype).to("cuda"),
+            t(np.concatenate([p[1] for p in packs]), torch.int32).to("cuda"),
+            t(counts, torch.int32).to("cuda"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N", [8, 5, 200])
+def test_bcsr_matmul_nan_in_pad_slots_never_reaches_output(hopper, dtype, N):
+    rng = np.random.default_rng(N)
+    mb, K = 3, 320
+    _, a_data, a_idx, counts = packed_workers(rng, 4, mb, K, dtype)
+    clean = a_data.clone()
+    live = torch.arange(K // 32, device=hopper) < counts[:, None]
+    a_data[~live] = float("nan")
+    a_idx[~live] = 12345             # out of range, never read either
+    b = t(rng.standard_normal((K, N)), dtype).to(hopper)
+    out = bcsr_matmul(a_data, a_idx, b, counts=counts)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    a_idx_clean = a_idx.masked_fill(~live, 0)
+    close(out, bcsr_matmul_plain(clean, a_idx_clean, b), dtype)
+
+
+@pytest.mark.parametrize("N", [8, 128])
+def test_bcsr_matmul_empty_block_row_writes_zeros(hopper, N):
+    rng = np.random.default_rng(7)
+    _, a_data, a_idx, counts = packed_workers(rng, 2, 4, 128, torch.float32)
+    counts[[0, 5]] = 0
+    b = t(rng.standard_normal((128, N))).to(hopper)
+    out = torch.full((8 * 32, N), float("nan"), device=hopper)
+    bcsr_matmul(a_data, a_idx, b, counts=counts, out=out)
+    torch.cuda.synchronize()
+    assert (out[:32] == 0).all() and (out[5 * 32:6 * 32] == 0).all()
+    close(out, bcsr_matmul_plain(a_data, a_idx, b, counts=counts))
+
+
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+@pytest.mark.parametrize("dtype,b_dtype", [
+    (F32, F32), (BF16, BF16),
+    (BF16, F32),     # a bf16 plan's matmat: bf16 shards, f32 coded B
+    (F32, BF16)], ids=["f32", "bf16", "bf16-f32", "f32-bf16"])
+@pytest.mark.parametrize("K,N", [(317, 1000), (256, 1024), (100, 6),
+                                 (96, 64), (130, 97)])
+def test_bcsr_matmul_grouped_per_worker_b(hopper, dtype, b_dtype, K, N):
+    """One launch over the live workers, each with its own B, ragged K/N,
+    against the plain version and a per-worker dense product."""
+    rng = np.random.default_rng(K + N)
+    n, mb, kp = 6, 3, -(-K // 32) * 32
+    shards, a_data, a_idx, counts = packed_workers(rng, n, mb, kp, dtype)
+    b = t(rng.standard_normal((n, K, N)), b_dtype).to(hopper)
+    tol = BF16 if BF16 in (dtype, b_dtype) else F32
+    live = (4, 1, 5, 0)
+    rows = t(live, torch.int32).to(hopper)
+    before = bcsr_matmul.launches
+    out = bcsr_matmul(a_data, a_idx, b, rows, mb=mb, counts=counts)
+    torch.cuda.synchronize()
+    assert bcsr_matmul.launches == before + 1
+    close(out, bcsr_matmul_plain(a_data, a_idx, b, rows, mb=mb,
+                                 counts=counts), tol)
+    dense = torch.cat([t(shards[i][:K], dtype).to(hopper).float().T
+                       @ b[i].float() for i in live])
+    close(out, dense, tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n,w", [(14, 16, 3), (36, 40, 2), (4, 20, 2)])
+@pytest.mark.parametrize("C", [64, 33])
+def test_cyclic_encode_strided_view(hopper, dtype, k, n, w, C):
+    """The kernel reads split_block_columns' strided view in place: C=64
+    takes the 16-byte path, C=33 (odd) the single-element one."""
+    from repro_torch.core.coded_matmul import split_block_columns
+    rng = np.random.default_rng(k * C)
+    A = t(rng.standard_normal((70, k * C)), dtype).to(hopper)
+    blocks = split_block_columns(A, k)
+    assert not blocks.is_contiguous()
+    sup = t(rng.integers(0, k, size=(n, w)), torch.int32).to(hopper)
+    coef = t(rng.standard_normal((n, w))).to(hopper)
+    before = cyclic_encode.launches
+    out = cyclic_encode(blocks, sup, coef)
+    torch.cuda.synchronize()
+    assert cyclic_encode.launches == before + 1
+    close(out, cyclic_encode_plain(blocks.contiguous(), sup, coef), dtype)
+
+
+def test_cyclic_encode_rejects_too_many_sources(hopper):
+    blocks = torch.zeros((300, 4, 8), device=hopper)
+    sup = torch.zeros((2, 2), dtype=torch.int32, device=hopper)
+    with pytest.raises(ValueError, match="shared memory"):
+        cyclic_encode(blocks, sup, torch.ones((2, 2), device=hopper))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -147,6 +254,11 @@ def test_plan_on_the_card_matches_the_cpu(hopper):
                         k_B=4, seed=1)
     cpu = compile_plan(t(A), scheme="proposed", n=20, k_A=4, k_B=4, seed=1,
                        backend="cuda")
-    np.testing.assert_allclose(card.matmat(t(B).to(hopper), done).cpu()
-                               .numpy(), cpu.matmat(t(B), done).numpy(),
+    before = launch_counts()
+    got = card.matmat(t(B).to(hopper), done)
+    after = launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        "bcsr_matmul": 1, "cyclic_encode": 1, "decode_matmul": 1}
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               cpu.matmat(t(B), done).numpy(),
                                rtol=2e-4, atol=2e-4)

@@ -127,6 +127,53 @@ class TestBcsrMatmul:
                     t(rows, torch.int32), mb=mb, out=dst)
         np.testing.assert_array_equal(dst.numpy(), out.numpy())
 
+    @pytest.mark.parametrize("K,M,N,bk,bm", [(96, 64, 8, 32, 32),
+                                             (64, 32, 5, 8, 8),
+                                             (128, 48, 24, 16, 16)])
+    def test_counts_skip_nan_pad_slots(self, K, M, N, bk, bm):
+        """Slots at or past ``counts`` are masked whatever they hold: NaN
+        pad tiles (and a garbage index) give the JAX oracle's result on
+        the packer's zero pads."""
+        rng = np.random.default_rng(K + M + N)
+        a = make_block_sparse(rng, K, M, bk, bm, 0.35)
+        b = rng.standard_normal((K, N)).astype(np.float32)
+        a_data, a_idx, _ = pack_bcsr(a, bk, bm, max_nnz=K // bk)
+        nz = np.abs(a.reshape(K // bk, bk, M // bm, bm)).max(axis=(1, 3)) > 0
+        counts = nz.sum(axis=0).astype(np.int32)
+        assert counts.min() < K // bk           # some block-rows have pads
+        pad = np.arange(K // bk)[None, :] >= counts[:, None]
+        nan_data, bad_idx = a_data.copy(), a_idx.copy()
+        nan_data[pad] = np.nan
+        bad_idx[pad] = 10 ** 6
+        out = bcsr_matmul_plain(t(nan_data), t(bad_idx, torch.int32), t(b),
+                                counts=t(counts, torch.int32))
+        assert torch.isfinite(out).all()
+        close(out, jref.bcsr_matmul_packed_ref(
+            jnp.asarray(a_data), jnp.asarray(a_idx), jnp.asarray(b)))
+        close(out, jref.bcsr_matmul_ref(a, b))
+
+    def test_per_worker_b_with_rows(self):
+        """B given per worker (n, K, N): output block-row group j is worker
+        rows[j]'s shard times its own B, as a loop of the JAX oracle."""
+        rng = np.random.default_rng(6)
+        n, mb, bk, bm, K, N = 5, 2, 8, 8, 40, 7
+        shards = [make_block_sparse(rng, K, mb * bm, bk, bm, 0.5)
+                  for _ in range(n)]
+        packs = [pack_bcsr(s, bk, bm, max_nnz=K // bk) for s in shards]
+        a_data = t(np.concatenate([p[0] for p in packs]))
+        a_idx = t(np.concatenate([p[1] for p in packs]), torch.int32)
+        b = rng.standard_normal((n, K - 3, N)).astype(np.float32)  # ragged K
+        rows = np.array([3, 0, 4], np.int32)
+        want = np.concatenate([np.asarray(jref.bcsr_matmul_ref(
+            shards[i][: K - 3], b[i])) for i in rows])
+        for fn in (bcsr_matmul_plain, bcsr_matmul):
+            out = fn(a_data, a_idx, t(b), t(rows, torch.int32), mb=mb)
+            close(out, want)
+        # all workers when rows is None
+        out = bcsr_matmul_plain(a_data, a_idx, t(b), mb=mb)
+        close(out, np.concatenate([np.asarray(jref.bcsr_matmul_ref(
+            shards[i][: K - 3], b[i])) for i in range(n)]))
+
     def test_flop_saving_structure(self):
         rng = np.random.default_rng(4)
         _, _, j_sparse = pack_bcsr(make_block_sparse(rng, 128, 64, 8, 8, 0.2),
@@ -161,6 +208,28 @@ class TestCyclicEncode:
                                           jnp.asarray(sup), jnp.asarray(coef)))
         close(out, pallas_encode(jnp.asarray(blocks), jnp.asarray(sup),
                                  jnp.asarray(coef), bt=bt, interpret=True))
+
+    @pytest.mark.parametrize("k,T,C,n,w", [(4, 24, 8, 6, 2),
+                                           (3, 16, 7, 5, 2),
+                                           (6, 20, 5, 8, 3)])
+    def test_strided_block_column_view(self, k, T, C, n, w):
+        """The encode reads ``split_block_columns``' strided view of the
+        operand as it is (the wrapper copies nothing)."""
+        from repro.core.coded_matmul import split_block_columns as j_split
+        from repro_torch.core.coded_matmul import split_block_columns
+        rng = np.random.default_rng(k * 100 + C)
+        A = rng.standard_normal((T, k * C)).astype(np.float32)
+        blocks = split_block_columns(t(A), k)
+        assert not blocks.is_contiguous()
+        sup = rng.integers(0, k, size=(n, w)).astype(np.int32)
+        coef = rng.standard_normal((n, w)).astype(np.float32)
+        want = pallas_encode(j_split(jnp.asarray(A), k), jnp.asarray(sup),
+                             jnp.asarray(coef), bt=4, interpret=True)
+        close(cyclic_encode_plain(blocks, t(sup, torch.int32), t(coef)), want)
+        close(cyclic_encode(blocks, t(sup, torch.int32), t(coef)), want)
+        with pytest.raises(ValueError, match="unit-stride"):
+            cyclic_encode(blocks.transpose(1, 2), t(sup, torch.int32),
+                          t(coef))
 
     def test_bf16_blocks(self):
         rng = np.random.default_rng(1)

@@ -75,6 +75,8 @@ class TestPacking:
         assert got.a_idx.dtype == torch.int32
         assert got.tile_counts == ref.tile_counts
         assert got.slot_counts == ref.slot_counts
+        np.testing.assert_array_equal(
+            got.counts.numpy(), np.asarray(ref.slot_counts).reshape(-1))
         assert (got.n, got.mb, got.t_pad, got.c_pad, got.slots) == (
             ref.n, ref.mb, ref.t_pad, ref.c_pad, ref.slots)
         np.testing.assert_array_equal(trt.unpack_coded_blocks(got).numpy(),
@@ -214,6 +216,53 @@ class TestExecutorParity:
                 assert got.shape == (k, ca, cb)
                 close(got, want_p)
                 close(got, want_k)
+
+    def test_cuda_matmat_uneven_slot_counts_all_patterns(self):
+        """The cuda backend's one grouped product (plain versions on CPU
+        tensors) skips pad slots by the device counts; block-sparse
+        operands give block-rows of different real slot counts."""
+        n, ka, kb, t, ca, cb = 6, 2, 2, 160, 64, 40
+        rng = np.random.default_rng(13)
+        sch = proposed_mm(n, ka, kb)
+        ra, rb = mm_encoding_matrices(sch, 0)
+        G = khatri_rao_rows(ra, rb)
+
+        def tiled(r, zeros):
+            keep = rng.random((t // 32, r // 32)) >= zeros
+            mask = np.kron(keep, np.ones((32, 32)))
+            return (rng.standard_normal((t, r)) * mask).astype(np.float32)
+
+        A = tiled(ka * ca, 0.6)
+        B = rng.standard_normal((t, kb * cb)).astype(np.float32)
+        coded_a = np.einsum("nk,ktc->ntc", ra, np.asarray(
+            j_split(jnp.asarray(A), ka))).astype(np.float32)
+        coded_b = np.einsum("nk,ktc->ntc", rb, np.asarray(
+            j_split(jnp.asarray(B), kb))).astype(np.float32)
+        k = ka * kb
+        ex = trt.CodedExecutor(torch.from_numpy(coded_a), G, k, ka * ca,
+                               backend="cuda")
+        packed = ex.packed
+        assert len({c for row in packed.slot_counts for c in row}) > 1
+        assert min(c for row in packed.slot_counts for c in row) < \
+            packed.slots
+        np.testing.assert_array_equal(
+            packed.counts.numpy(), np.asarray(packed.slot_counts).reshape(-1))
+        assert packed.counts.dtype == torch.int32
+        ref = jrt.CodedExecutor(coded_a, G, k, ka * ca, backend="reference")
+        for done in all_masks(n, n - k):
+            got = ex.matmat(torch.from_numpy(coded_b), done)
+            assert got.shape == (k, ca, cb)
+            close(got, ref.matmat(jnp.asarray(coded_b), jnp.asarray(done)))
+
+    def test_cuda_backend_takes_only_its_tile(self):
+        rng = np.random.default_rng(14)
+        _, coded, G = build_mv(rng, 6, 4, 64, 64)
+        with pytest.raises(ValueError, match="32x32"):
+            trt.CodedExecutor(torch.from_numpy(coded), G, 4, 64,
+                              backend="cuda", bk=16)
+        ex = trt.CodedExecutor(torch.from_numpy(coded), G, 4, 64,
+                               backend="packed", bk=16, bm=16)
+        assert (ex.packed.bk, ex.packed.bm) == (16, 16)
 
     def test_decode_all_patterns(self):
         n, k, t, r = 6, 4, 32, 24
