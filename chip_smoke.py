@@ -23,18 +23,33 @@ Phases, one JSON line each:
      its plain PyTorch version on the inputs that phase passes it (the
      encode on ``split_block_columns``' strided view; the matmat's one
      grouped ``bcsr_matmul`` over the k live workers, and one worker
-     alone, each with the f32 coded B a plan's matmat passes), in f32
-     and with bf16 shards, with its time, the plain version's, one
+     alone, each with the f32 coded B a plan's matmat passes; the decode
+     in the layouts of matvec (mv), matmat (mm) and ``decode`` (gather)),
+     in f32 and with bf16 shards, with its time, the plain version's, one
      PyTorch library call's, and the least time the card could take
      (the bound: bytes over 3.35 TB/s, or flops over 67 TFLOP/s f32 and
-     989 TFLOP/s for a bf16 x bf16 product).
+     989 TFLOP/s for a bf16 x bf16 product).  Decode rows add a second
+     yardstick, ``torch.matmul`` followed by the rearrangement the
+     executor did before the decode stored its layout itself, and
+     ``device_ms``, the kernel's own duration in a ``torch.profiler``
+     trace, which sets device time apart from the host's issue rate;
+  5. census -- one matvec and one matmat under ``torch.profiler``: every
+     device kernel they launch, in order, and the device's busy share of
+     the call's p50 wall time.  The decode must be the last kernel: no
+     copy or permute follows it.
 
 Launch counters are set to 0 just before each main path and read just
 after: every encode must have gone through ``cyclic_encode``, every
 worker product through ``bcsr_matmul`` (one launch per matvec and per
-matmat) and every decode through ``decode_matmul``.  Any failure raises
-and exits non-zero.  The last three lines are the kernel table, the
-``nvidia-smi`` line and ``{"ok": true, "device": {...}}``.
+matmat) and every decode through ``decode_matmul`` (one per matvec,
+matmat and ``decode``).  Any failure raises and exits non-zero.  The
+last three lines are the kernel table, the ``nvidia-smi`` line and
+``{"ok": true, "device": {...}}``.
+
+With ``--parent DIR`` (another checkout, e.g. the parent commit's) it
+also runs ``scripts/ab_smoke.py``: matvec and matmat p50 of that
+checkout and of this one, in turns (parent, change, change, parent), on
+this card, one ``ab`` line per run and a summary.
 """
 
 from __future__ import annotations
@@ -65,6 +80,10 @@ from repro_torch.kernels import (  # noqa: E402
     launch_counts,
     reset_launch_counts,
 )
+from repro_torch.kernels.decode_matmul import (  # noqa: E402
+    launch_decode,
+    prepare_decode,
+)
 from repro_torch.runtime import encode_blocks, support_tables  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 rate, f32 FFMA rate, and the
@@ -76,6 +95,13 @@ BF16_FLOPS_PER_S = 989e12
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # end-to-end relative error bounds (examples/quickstart.py asserts 1e-3)
 REL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
+
+# what each kernel's CUDA functions are called in a profiler trace
+TRACE_NAMES = {
+    "bcsr_matmul": ("bcsr_narrow_kernel", "bcsr_wide_kernel"),
+    "cyclic_encode": ("cyclic_encode_kernel",),
+    "decode_matmul": ("decode_rows_kernel", "decode_transposed_kernel"),
+}
 
 SOURCES = {
     "bcsr_matmul": ("src/repro_torch/kernels/csrc/bcsr_matmul.cu",
@@ -143,15 +169,88 @@ def peak_rate(*operands: torch.Tensor) -> float:
     return F32_FLOPS_PER_S
 
 
+def trace(fn):
+    """The device activities of ``fn()`` in a ``torch.profiler`` trace:
+    (name, start us, end us) in start order."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    acts = [(e.name, e.time_range.start, e.time_range.end)
+            for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return sorted(acts, key=lambda a: a[1])
+
+
+# the profiler now and then loses device activities from a trace (on an
+# H100, one launch of 20 in one run), so a trace that lacks launches the
+# counters saw is taken again, this many times in all
+TRACE_ATTEMPTS = 3
+
+
+def trace_whole(what: str, fn, ran) -> tuple[list, int]:
+    """``trace(fn)`` and the attempt it took, retaken while ``ran(acts)``
+    (the port kernels the trace shows, by name) differs from the launches
+    ``fn`` makes on the launch counters."""
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        before = launch_counts()
+        acts = trace(fn)
+        launched = {k: v - before[k] for k, v in launch_counts().items()}
+        if ran(acts) == launched:
+            return acts, attempt
+    raise AssertionError(f"{what}: {TRACE_ATTEMPTS} traces show "
+                         f"{ran(acts)} port launches, the counters "
+                         f"{launched}")
+
+
+def kernel_of(activity_name: str) -> str | None:
+    """The port kernel a traced device activity belongs to, if any."""
+    for name, fns in TRACE_NAMES.items():
+        if any(fn in activity_name for fn in fns):
+            return name
+    return None
+
+
+# calls traced for a kernel's device time
+TRACED_CALLS = 20
+
+
+def traced_ran(acts) -> dict:
+    """Launches of each port kernel in a trace."""
+    names = [kernel_of(a[0]) for a in acts]
+    return {name: names.count(name) for name in TRACE_NAMES}
+
+
+def device_ms(name: str, fn, reps: int = TRACED_CALLS) -> tuple[float, int]:
+    """Mean duration of kernel ``name``'s launches in a trace of ``reps``
+    calls of ``fn`` (device time alone, without the host's issue rate),
+    and the traces it took."""
+    acts, attempts = trace_whole(name, lambda: [fn() for _ in range(reps)],
+                                 traced_ran)
+    acts = [a for a in acts if kernel_of(a[0]) == name]
+    if len(acts) != reps:
+        raise AssertionError(f"{name}: {len(acts)} traced launches for "
+                             f"{reps} calls")
+    return sum(end - start for _, start, end in acts) / reps / 1e3, attempts
+
+
 def check_kernel(name: str, case: str, kernel, plain, library, *,
                  dtype: torch.dtype, nbytes: float, flops: float,
-                 flops_per_s: float, reps: int, plain_reps: int) -> dict:
-    """Hold one kernel against its plain version; time all three."""
+                 flops_per_s: float, reps: int, plain_reps: int,
+                 extra_ms: dict | None = None) -> dict:
+    """Hold one kernel against its plain version; time all three, and the
+    calls of ``extra_ms`` (row key -> call) with the kernel's traced
+    ``device_ms`` when given."""
     got, want = kernel(), plain()
     torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name} ({case}): {got.dtype} "
+                             f"{tuple(got.shape)}, plain {want.dtype} "
+                             f"{tuple(want.shape)}")
     tol = TOL[dtype]
-    diff = (got - want).abs()
-    excess = float((diff - (tol + tol * want.abs())).max())
+    diff = (got.float() - want.float()).abs()
+    excess = float((diff - (tol + tol * want.float().abs())).max())
     row = {
         "name": name, "case": case, "dtype": str(dtype).removeprefix("torch."),
         "shape": list(got.shape), "max_abs_err": float(diff.max()),
@@ -159,6 +258,10 @@ def check_kernel(name: str, case: str, kernel, plain, library, *,
         "ms": cuda_ms(kernel, reps), "plain_ms": cuda_ms(plain, plain_reps),
         "library_ms": None if library is None else cuda_ms(library, reps),
     }
+    if extra_ms is not None:
+        for key, fn in extra_ms.items():
+            row[key] = cuda_ms(fn, reps)
+        row["device_ms"], row["traces"] = device_ms(name, kernel)
     row["bound_ms"], row["bound_by"] = bound(nbytes, flops, flops_per_s)
     row["bound_share"] = row["bound_ms"] / row["ms"]
     row["vs_library"] = (None if library is None
@@ -304,16 +407,63 @@ def check_encode(blocks, sup, coef, R, case, reps) -> dict:
         flops_per_s=F32_FLOPS_PER_S, reps=reps, plain_reps=2)
 
 
-def check_decode(hinv, y, case, reps) -> dict:
-    k, p = y.shape
-    nbytes = hinv.numel() * 4 + y.numel() * y.element_size() + k * p * 4
+def check_decode(hinv, y, mode: str, reps: int, **kw) -> dict:
+    """decode_matmul storing one caller's layout (mode), against its plain
+    version.  Yardsticks: ``torch.matmul`` of the same operand alone
+    (library_ms), and followed by the rearrangement that produced the
+    layout before the decode stored it itself (library_rearranged_ms):
+    mv and mm decoded Y's pad columns too; gather took the live rows,
+    cast and copied them first."""
+    k = hinv.shape[0]
+    hl = hinv.to(y.dtype)
+    if mode == "gather":
+        rows, r = kw["rows"], kw["r"]
+        live = y[rows.long()].reshape(k, -1)
+        nread = live.numel()
+
+        def rearranged():
+            ysub = y[rows.long()].to(torch.float32)
+            u = hinv @ ysub.reshape(k, -1).contiguous()
+            u = torch.movedim(u.reshape((k,) + ysub.shape[1:]), 0, -2)
+            return u.reshape(u.shape[:-2] + (-1,))[..., :r].to(y.dtype)
+        library = (lambda: torch.matmul(hl, live))
+    else:
+        _, c_pad, inner = y.shape
+        c, flat = kw["c"], y.view(k, -1)
+        nread = k * c * inner
+        if mode == "mv":
+            def merge(u):
+                u = u.view(k, c_pad, inner)[:, :c].permute(2, 0, 1)
+                return u.reshape(inner, -1)[:, :kw["r"]]
+        else:
+            kb = kw["kb"]
+
+            def merge(u):
+                u = u.view(k, c_pad, inner)[:, :c]
+                u = u.reshape(k // kb, kb, c, inner).permute(0, 2, 1, 3)
+                return u.reshape(k // kb * c, kb * inner)[:kw["r"], :kw["w"]]
+
+        def rearranged():
+            return merge(torch.matmul(hl, flat))
+        library = (lambda: torch.matmul(hl, flat))
+    out = decode_matmul(hinv, y, mode, **kw)
+    nbytes = (hinv.numel() * 4 + nread * y.element_size()
+              + out.numel() * out.element_size()
+              + (k * 4 if mode == "gather" else 0))
+    # ms times the call the executor makes, a launch of the layout it
+    # checked once; wrapper_ms the checked call
+    layout = prepare_decode(hinv, y, mode, **kw)
+    rows = kw.get("rows")
+
+    def call():
+        return launch_decode(layout, hinv, y, rows)
     return check_kernel(
-        "decode_matmul", case,
-        lambda: decode_matmul(hinv, y),
-        lambda: decode_matmul_plain(hinv, y),
-        lambda: torch.matmul(hinv.to(y.dtype), y),
-        dtype=y.dtype, nbytes=nbytes, flops=2.0 * k * k * p,
-        flops_per_s=F32_FLOPS_PER_S, reps=reps, plain_reps=reps)
+        "decode_matmul", mode, call,
+        lambda: decode_matmul_plain(hinv, y, mode, **kw),
+        library, dtype=y.dtype, nbytes=nbytes, flops=2.0 * k * out.numel(),
+        flops_per_s=F32_FLOPS_PER_S, reps=reps, plain_reps=reps,
+        extra_ms={"library_rearranged_ms": rearranged,
+                  "wrapper_ms": lambda: decode_matmul(hinv, y, mode, **kw)})
 
 
 # ---------------------------------------------------------------------------
@@ -350,6 +500,18 @@ def mv_stored_decode(plan, rows: np.ndarray, x: torch.Tensor, r: int):
     return u.reshape(ex.k, b, -1).transpose(0, 1).reshape(b, -1)[:, :r]
 
 
+def gathered_decode(plan, done, y: torch.Tensor, r: int) -> torch.Tensor:
+    """executor.decode's function in f64: the live rows of the workers'
+    results y (n, b, c) decoded by the exact inverse of G[rows]."""
+    k = plan.k
+    rows = np.flatnonzero(done)[:k]
+    hinv = np.linalg.inv(plan.executor.G.cpu().double().numpy()[rows])
+    live = y[torch.as_tensor(rows, device=y.device)].double()
+    u = torch.from_numpy(hinv).to(y.device) @ live.reshape(k, -1)
+    u = torch.movedim(u.reshape(live.shape), 0, -2)
+    return u.reshape(u.shape[:-2] + (-1,))[..., :r]
+
+
 def check_decoded(phase: str, dtype, plan, done, out, ref, t: int,
                   stored=None) -> dict:
     """Hold a decoded result against f64 truth (and, for bf16 shards,
@@ -383,6 +545,7 @@ def phase_mv(seed: int, dev, gen, rng, t_dim: int = 3072,
     result, calls = {}, 0
 
     reset_launch_counts()
+    decodes = 0
     for dtype in (torch.float32, torch.bfloat16):
         a_in, x_in = A.to(dtype), x.to(dtype)
         before = launch_counts()
@@ -408,15 +571,31 @@ def phase_mv(seed: int, dev, gen, rng, t_dim: int = 3072,
                 lambda rows: mv_stored_decode(plan, rows, x_in, r_dim))
             checks.append(check_decoded("mv", dtype, plan, done, out, ref,
                                         t_dim, stored))
+        # decode-only: the n workers' results for the batch, (n, b, c), as
+        # a caller hands them to executor.decode
+        ex = plan.executor
+        y_workers = torch.randn((n, batch, ex.c), generator=gen,
+                                device=dev).to(dtype)
+        before = launch_counts()
+        out = ex.decode(y_workers, masks[1])
+        expect_counts("one decode", launched_since(before), bcsr_matmul=0,
+                      cyclic_encode=0, decode_matmul=1)
+        decodes += 1
+        if out.shape != (batch, r_dim) or out.dtype != dtype:
+            raise AssertionError(f"decode {dtype}: {out.dtype} {out.shape}")
+        decoded = check_decoded(
+            "decode", dtype, plan, masks[1], out,
+            gathered_decode(plan, masks[1], y_workers, r_dim), plan.k)
         reps = 20
         p50 = host_p50_ms(lambda: plan.matvec(x_in, masks[1]), reps)
         mask_dev = torch.as_tensor(masks[1], device=dev)
         p50_dev_mask = host_p50_ms(lambda: plan.matvec(x_in, mask_dev), reps)
         calls += 2 * reps
-        ex = plan.executor
         cache = ex.cache
         key = str(dtype).removeprefix("torch.")
-        result[key] = {"plan": plan, "x": x_in, "A": a_in}
+        result[key] = {"plan": plan, "x": x_in, "A": a_in,
+                       "y_workers": y_workers, "p50": p50,
+                       "done": masks[1]}
         emit("mv", dtype=key, shape=[t_dim, r_dim], batch=batch,
              scheme="proposed", n=n, s=s, k=plan.k,
              weight=plan.scheme.weight(), compile_s=compile_s,
@@ -424,14 +603,16 @@ def phase_mv(seed: int, dev, gen, rng, t_dim: int = 3072,
              coded_mb=ex.coded.numel() * ex.coded.element_size() / 2**20,
              packed_mb=(ex.packed.a_data.numel()
                         * ex.packed.a_data.element_size() / 2**20),
-             patterns=checks, matvec_p50_ms=p50, matvec_p50_ms_cuda_mask=p50_dev_mask,
+             patterns=checks, decode=decoded, matvec_p50_ms=p50,
+             matvec_p50_ms_cuda_mask=p50_dev_mask,
              cuda_mask_note="a CUDA done mask is copied to the host per "
                             "call (one device-to-host sync)",
              cache_hits=cache.hits, cache_misses=cache.misses)
     counts = launch_counts()
     expect_counts("mv", counts, bcsr_matmul=calls, cyclic_encode=2,
-                  decode_matmul=calls)
-    emit("mv", launches=counts, matvec_calls=calls, compiles=2)
+                  decode_matmul=calls + decodes)
+    emit("mv", launches=counts, matvec_calls=calls, decode_calls=decodes,
+         compiles=2)
     return result, [counts]
 
 
@@ -450,13 +631,17 @@ def kernels_mv(mv: dict, reps: int) -> list[dict]:
         rows.append(check_encode(
             blocks, torch.as_tensor(sup, device=A.device),
             torch.as_tensor(coef, device=A.device), R, "mv", 3))
-        # the decode of one matvec: Y is bcsr_matmul's output
+        # the decode of one matvec: Y is bcsr_matmul's output, (b, r) out
         dplan = ex.cache.plan(done)
         y = bcsr_matmul(ex.packed.a_data, ex.packed.a_idx, x.T.contiguous(),
                         dplan.rows_dev, mb=ex.packed.mb,
                         counts=ex.packed.counts)
-        y = y.view(ex.k, -1).to(A.dtype).contiguous()
-        rows.append(check_decode(dplan.hinv_dev, y, "mv", reps))
+        y = y.view(ex.k, ex.packed.c_pad, -1).to(A.dtype)
+        rows.append(check_decode(dplan.hinv_dev, y, "mv", reps,
+                                 c=ex.packed.c, r=ex.r))
+        # the decode of executor.decode: live rows read in place
+        rows.append(check_decode(dplan.hinv_dev, data["y_workers"], "gather",
+                                 reps, rows=dplan.rows_dev, r=ex.r))
     return rows
 
 
@@ -499,7 +684,9 @@ def phase_mm(seed: int, dev, gen, rng, t_dim: int = 8192,
                                     ref, t_dim))
     reps = 5
     p50 = host_p50_ms(lambda: plan.matmat(B, masks[0]), reps)
-    calls = len(masks) + reps
+    if plan.matmat(B, masks[0]).stride() != (w_dim, 1):
+        raise AssertionError("mm: the result is not a contiguous (r, w)")
+    calls = len(masks) + reps + 1
     counts = launch_counts()
     expect_counts("mm", counts, bcsr_matmul=calls,
                   cyclic_encode=1 + calls, decode_matmul=calls)
@@ -517,7 +704,7 @@ def phase_mm(seed: int, dev, gen, rng, t_dim: int = 8192,
          cache_hits=ex.cache.hits, cache_misses=ex.cache.misses,
          launches=counts, matmat_calls=calls)
     return {"plan": plan, "B": B, "coded_b": coded_b, "done": masks[0],
-            "counts": counts}
+            "counts": counts, "p50": p50}
 
 
 def kernels_mm(mm: dict, reps: int) -> list[dict]:
@@ -528,7 +715,7 @@ def kernels_mm(mm: dict, reps: int) -> list[dict]:
     worker = int(dplan.rows[0])
     y = bcsr_matmul(ex.packed.a_data, ex.packed.a_idx, coded_b,
                     dplan.rows_dev, mb=ex.packed.mb,
-                    counts=ex.packed.counts).view(ex.k, -1)
+                    counts=ex.packed.counts).view(ex.k, ex.packed.c_pad, -1)
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         # bf16: the same operand's shards, stored as bf16 by a bf16 plan,
@@ -542,14 +729,56 @@ def kernels_mm(mm: dict, reps: int) -> list[dict]:
         blocks = split_block_columns(B.to(dtype), sch.k_B)
         rows.append(check_encode(blocks, plan._sup_b, plan._coef_b,
                                  plan._rb, "mm", 3))
-        rows.append(check_decode(dplan.hinv_dev, y.to(dtype).contiguous(),
-                                 "mm", reps))
+        rows.append(check_decode(dplan.hinv_dev, y.to(dtype), "mm", reps,
+                                 c=ex.packed.c, r=plan.r, w=B.shape[1],
+                                 kb=sch.k_B))
     return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: the device kernels of one call, from a profiler trace
+# ---------------------------------------------------------------------------
+
+
+def busy_us(acts) -> float:
+    """Time covered by at least one device activity."""
+    total, end = 0.0, float("-inf")
+    for _, start, stop in acts:
+        if stop > end:
+            total += stop - max(start, end)
+            end = stop
+    return total
+
+
+def census(label: str, fn, p50_ms: float, want: dict) -> dict:
+    """Trace one call of ``fn``: every device activity in order, the
+    device's busy time against the call's p50 wall time (host clock,
+    untraced), and the port kernels it ran.  The decode must come last."""
+    fn()
+    torch.cuda.synchronize()
+    acts, attempts = trace_whole(label, fn, traced_ran)
+    names = [kernel_of(a[0]) or a[0].removeprefix("void ").split("<")[0]
+             for a in acts]
+    busy = busy_us(acts) / 1e3
+    row = {"call": label, "device_activities": names,
+           "device_busy_ms": busy,
+           "device_span_ms": (acts[-1][2] - acts[0][1]) / 1e3 if acts else 0,
+           "p50_ms": p50_ms, "busy_share": busy / p50_ms,
+           "idle_share": 1.0 - busy / p50_ms, "traces": attempts}
+    emit("census", **row)
+    ran = {name: names.count(name) for name in want}
+    if ran != want:
+        raise AssertionError(f"{label}: traced kernels {ran}, expected {want}")
+    if not names or names[-1] != "decode_matmul":
+        raise AssertionError(f"{label}: device work after the decode: {names}")
+    return row
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--parent", type=Path,
+                    help="also compare p50s with this checkout, in turns")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none found")
@@ -571,13 +800,31 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     rng = np.random.default_rng(args.seed)
     mv, (mv_counts,) = phase_mv(args.seed, dev, gen, rng)
-    rows = kernels_mv(mv, reps=20)
-    del mv
+    rows = kernels_mv(mv, reps=200)
+    f32 = mv["float32"]
+    census("matvec", lambda: f32["plan"].matvec(f32["x"], f32["done"]),
+           f32["p50"], {"bcsr_matmul": 1, "cyclic_encode": 0,
+                        "decode_matmul": 1})
+    del mv, f32
     mm = phase_mm(args.seed, dev, gen, rng)
     rows += kernels_mm(mm, reps=10)
+    census("matmat", lambda: mm["plan"].matmat(mm["B"], mm["done"]),
+           mm["p50"], {"bcsr_matmul": 1, "cyclic_encode": 1,
+                       "decode_matmul": 1})
     mm_counts = mm["counts"]
     del mm
     torch.cuda.synchronize()
+
+    if args.parent is not None:
+        root = Path(__file__).resolve().parent
+        ab = subprocess.run(
+            [sys.executable, str(root / "scripts" / "ab_smoke.py"),
+             str(args.parent), str(root)],
+            capture_output=True, text=True, timeout=900)
+        for line in ab.stdout.splitlines():
+            emit("ab", **json.loads(line))
+        if ab.returncode != 0:
+            raise AssertionError(f"ab_smoke.py failed: {ab.stderr[-2000:]}")
 
     table = []
     for name, (source, replaces) in SOURCES.items():

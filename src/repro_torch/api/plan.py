@@ -189,11 +189,9 @@ class CodedPlan:
         else:
             coded_b = encode_blocks(blocks_b, self._sup_b, self._coef_b,
                                     self.backend)
-        u = self.executor.matmat(coded_b, done)      # (k, ca, cb)
-        ka, kb = sch.k_A, sch.k_B
-        ca, cb = u.shape[1], u.shape[2]
-        out = u.reshape(ka, kb, ca, cb).permute(0, 2, 1, 3)
-        return out.reshape(ka * ca, kb * cb)[: self.r, : w]
+        # (r, w) from the executor: on cuda the decode stores it directly
+        return self.executor.matmat(coded_b, done,
+                                    merge=(sch.k_A, sch.k_B, self.r, w))
 
     def aggregate(self, payloads, done=None):
         """Straggler-resilient sum of the k shard-gradients.

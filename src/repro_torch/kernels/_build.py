@@ -7,7 +7,10 @@ an object in its own ``nvcc`` process, all three at once, and one more
 at the root of the checkout.  The file name carries a hash of the
 sources and flags, so an edited source is rebuilt and an unchanged one
 is loaded from there.  The library is bound with ``ctypes``: every
-pointer and the stream are ``c_void_p``.
+pointer and the stream are ``c_void_p``.  It is loaded as a ``PyDLL``,
+which keeps the interpreter lock across a call: the launchers only
+queue work and return at once, so releasing the lock would only add
+host time to every launch.
 
 Nothing here runs at import; ``library()`` builds on its first call and
 raises, with ``nvcc``'s stderr, when the build fails.
@@ -43,11 +46,11 @@ _SIGNATURES = {
     # w, elems, device, stream
     "repro_cyclic_encode": (_P, _I, _LL, _LL, _P, _P, _P, _I, _I, _I, _I,
                             _I, _I, _I, _P),
-    # hinv, y, y_dtype, u, k, P, stream
-    "repro_decode_matmul": (_P, _P, _I, _P, _I, _LL, _P),
+    # hinv, y, rows, out, geometry (13 int64: see decode_matmul.cu), stream
+    "repro_decode_matmul": (_P, _P, _P, _P, _P, _P),
 }
 
-_lib: ctypes.CDLL | None = None
+_lib: ctypes.PyDLL | None = None
 # how the library was obtained: {"seconds": build time, "cached": bool}
 build_info: dict = {}
 
@@ -102,7 +105,7 @@ def _compile(target: Path) -> None:
         os.replace(lib, target)      # atomic: a reader never sees half
 
 
-def library() -> ctypes.CDLL:
+def library() -> ctypes.PyDLL:
     """The loaded kernel library, built from ``csrc/`` if needed."""
     global _lib
     if _lib is not None:
@@ -112,7 +115,7 @@ def library() -> ctypes.CDLL:
     cached = target.exists()
     if not cached:
         _compile(target)
-    lib = ctypes.CDLL(str(target))
+    lib = ctypes.PyDLL(str(target))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
@@ -135,10 +138,12 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def dtype_code(t, name: str) -> int:
-    """The C interface's code for ``t``'s dtype (f32 or bf16 only)."""
-    code = _DTYPE_CODES.get(t.dtype)
+    """The C interface's code for ``t``'s dtype, or for the dtype ``t``
+    (f32 or bf16 only)."""
+    dtype = t if isinstance(t, torch.dtype) else t.dtype
+    code = _DTYPE_CODES.get(dtype)
     if code is None:
-        raise TypeError(f"{name}: dtype {t.dtype} not supported by the "
+        raise TypeError(f"{name}: dtype {dtype} not supported by the "
                         f"kernel (float32 or bfloat16)")
     return code
 
@@ -153,6 +158,17 @@ def require(t, name: str, device, dtype=None) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def raw_stream(index: int) -> int:
+    """PyTorch's current stream on CUDA device ``index``, as the launchers
+    take it: read as a raw pointer, without building a
+    ``torch.cuda.Stream`` object, which costs more host time than the
+    launch."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 def stream_ptr(device) -> int:
-    """PyTorch's current stream on ``device``, as the launchers take it."""
-    return torch.cuda.current_stream(device).cuda_stream
+    """``raw_stream`` of a ``torch.device`` (the current device when it
+    names no index)."""
+    index = device.index
+    return raw_stream(torch.cuda.current_device() if index is None
+                      else index)

@@ -81,9 +81,40 @@ def cyclic_encode_ref(blocks: torch.Tensor, sup: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def decode_matmul_ref(hinv: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """hinv (k, k), y (k, P) -> (k, P) in f32."""
-    return hinv.to(F32) @ y.to(F32)
+def decode_matmul_ref(hinv: torch.Tensor, y: torch.Tensor, mode: str = "flat",
+                      *, rows: torch.Tensor | None = None, c: int | None = None,
+                      r: int | None = None, w: int | None = None,
+                      kb: int = 1) -> torch.Tensor:
+    """U = Hinv @ Y in f32, then rearranged into the caller's layout.
+
+    flat   : y (k, P) -> U (k, P)
+    mv     : y (k, c_pad, b), the products of k workers for b requests
+             -> (b, r): out[q, i*c + col] = U[i, col, q], col < c
+    mm     : y (k, c_pad, cb), unknown i = ia*kb + ib
+             -> (r, w): out[ia*c + col_a, ib*cb + col_b] = U[i, col_a, col_b]
+    gather : y (n, *lead, c), the live results rows[j] of n
+             -> (*lead, r) in y's dtype: out[..., i*c + col] = U[i, ..., col]
+
+    Columns past c (the pad of c_pad) are dropped before the product.
+    """
+    k = hinv.shape[0]
+    if mode == "flat":
+        return hinv.to(F32) @ y.to(F32)
+    if mode == "gather":
+        ysub = y[rows.long()]
+        u = hinv.to(F32) @ ysub.reshape(k, -1).to(F32)
+        u = torch.movedim(u.reshape(ysub.shape), 0, -2)
+        u = u.reshape(u.shape[:-2] + (-1,))[..., :r]
+        return u.to(y.dtype).contiguous()
+    ysub = y[:, :c]
+    u = (hinv.to(F32) @ ysub.reshape(k, -1).to(F32)).reshape(ysub.shape)
+    if mode == "mv":
+        return u.permute(2, 0, 1).reshape(y.shape[2], -1)[:, :r].contiguous()
+    if mode == "mm":
+        cb = y.shape[2]
+        u = u.reshape(k // kb, kb, c, cb).permute(0, 2, 1, 3)
+        return u.reshape(k // kb * c, kb * cb)[:r, :w].contiguous()
+    raise ValueError(f"unknown decode mode {mode!r}")
 
 
 # ---------------------------------------------------------------------------

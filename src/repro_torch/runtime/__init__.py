@@ -24,6 +24,7 @@ from .executor import (  # noqa: F401
     ENV_BACKEND,
     CodedExecutor,
     encode_blocks,
+    merge_unknowns,
     resolve_backend,
     support_tables,
     tracks_grad,

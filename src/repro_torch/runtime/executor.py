@@ -35,7 +35,12 @@ import torch
 from .._device import as_tensor, resolve_device
 from ..kernels.bcsr_matmul import bcsr_matmul
 from ..kernels.cyclic_encode import cyclic_encode
-from ..kernels.decode_matmul import decode_matmul
+from ..kernels.decode_matmul import (
+    MAX_K,
+    decode_matmul,
+    launch_decode,
+    prepare_decode,
+)
 from ..kernels.ref import cyclic_encode_ref
 from .decode_cache import DecodeCache
 from .pack import PackedShards, bsr_shards, pack_coded_blocks
@@ -82,6 +87,15 @@ def tracks_grad(*vals) -> bool:
 # ---------------------------------------------------------------------------
 # Encoding (Alg. 1 / Alg. 2 line: coded_i = sum_j coef[i,j] * blocks[sup[i,j]])
 # ---------------------------------------------------------------------------
+
+
+def merge_unknowns(u: torch.Tensor, k_A: int, k_B: int, r: int,
+                   w: int) -> torch.Tensor:
+    """Decoded unknowns (k_A * k_B, ca, cb) -> A^T B (r, w): unknown
+    i = ia * k_B + ib is the (ia, ib) block."""
+    k, ca, cb = u.shape
+    out = u.reshape(k_A, k_B, ca, cb).permute(0, 2, 1, 3)
+    return out.reshape(k_A * ca, k_B * cb)[:r, :w]
 
 
 def support_tables(supports, R) -> tuple[np.ndarray, np.ndarray]:
@@ -150,9 +164,14 @@ class CodedExecutor:
         self.cache: DecodeCache | None = None
         self.pack_seconds = 0.0
         self._bsr = None            # lazy scipy BSR shards ("packed")
+        # the cuda decode's layouts, each checked on its first call
+        self._decode_layouts: dict = {}
         if self.backend == "cuda" and {bk, bm} - {None, CUDA_TILE}:
             raise ValueError(f"the cuda backend packs {CUDA_TILE}x{CUDA_TILE} "
                              f"tiles, got bk={bk}, bm={bm}")
+        if self.backend == "cuda" and k > MAX_K:
+            raise ValueError(f"the cuda backend decodes at most {MAX_K} "
+                             f"unknowns, got k={k}")
         if self.backend != "reference":
             tile = CUDA_TILE if self.backend == "cuda" else HOST_TILE
             t0 = time.perf_counter()
@@ -225,10 +244,9 @@ class CodedExecutor:
             y = bcsr_matmul(packed.a_data, packed.a_idx, xb.T.contiguous(),
                             plan.rows_dev, mb=packed.mb,
                             counts=packed.counts)
-            u = decode_matmul(plan.hinv_dev,
-                              y.view(self.k, packed.c_pad * b))
-            u = u.view(self.k, packed.c_pad, b)[:, : packed.c]
-            return u.permute(2, 0, 1).reshape(b, -1)[:, : self.r]
+            # the decode stores (b, r) itself, skipping the pad columns
+            return self._decode(plan, y.view(self.k, packed.c_pad, b), "mv",
+                                c=packed.c, r=self.r)
         # scipy BSR shards: nnz-tile-proportional worker products,
         # stragglers (and zero tiles) never touched; host numpy end to
         # end, one transfer back at the end
@@ -243,17 +261,22 @@ class CodedExecutor:
 
     # -- matmat: per-worker A_i^T B_i, decoded unknowns --------------------
 
-    def matmat(self, coded_b, done=None) -> torch.Tensor:
+    def matmat(self, coded_b, done=None, *, merge=None) -> torch.Tensor:
         """Decoded unknowns U (k, ca, cb) from paired coded operands.
 
         ``self.coded`` holds the coded A shards, ``coded_b`` the coded B
         shards (n, t, cb); ``self.G`` must be the Khatri-Rao system over
-        the k = k_A * k_B unknowns.
+        the k = k_A * k_B unknowns.  With ``merge=(k_A, k_B, r, w)`` the
+        result is A^T B (r, w) instead (``merge_unknowns``), which the
+        ``cuda`` decode stores directly.
         """
         coded_b = as_tensor(coded_b, self.device)
+        if merge is not None and merge[0] * merge[1] != self.k:
+            raise ValueError(f"merge {merge}: k_A * k_B must be k={self.k}")
         if self._fast_path(coded_b, done):
-            return self._matmat_packed(coded_b, done)
-        return self._matmat_reference(coded_b, done)
+            return self._matmat_packed(coded_b, done, merge)
+        u = self._matmat_reference(coded_b, done)
+        return u if merge is None else merge_unknowns(u, *merge)
 
     def _matmat_reference(self, coded_b, done):
         dt = torch.promote_types(self.coded.dtype, coded_b.dtype)
@@ -261,7 +284,7 @@ class CodedExecutor:
         u = self._solve(done, p)
         return u.reshape((self.k,) + p.shape[1:])
 
-    def _matmat_packed(self, coded_b, done):
+    def _matmat_packed(self, coded_b, done, merge):
         plan = self.cache.plan(self._all_alive(done))
         packed = self.packed
         cb = coded_b.shape[2]
@@ -271,10 +294,16 @@ class CodedExecutor:
             y = bcsr_matmul(packed.a_data, packed.a_idx,
                             coded_b.contiguous(), plan.rows_dev,
                             mb=packed.mb, counts=packed.counts)
-            # decode the padded columns too (zeros in, zeros out) rather
-            # than copy Y to drop them
-            u = decode_matmul(plan.hinv_dev, y.view(self.k, -1))
-            return u.view(self.k, packed.c_pad, cb)[:, : packed.c]
+            y = y.view(self.k, packed.c_pad, cb)
+            # the decode stores the merged (r, w), or the unknowns one
+            # under another; Y's pad columns are never decoded
+            if merge is not None:
+                _, kb, r, w = merge
+                return self._decode(plan, y, "mm", c=packed.c, r=r, w=w,
+                                    kb=kb)
+            u = self._decode(plan, y, "mm", c=packed.c, r=self.k * packed.c,
+                             w=cb)
+            return u.view(self.k, packed.c, cb)
         shards = self._bsr_shards()
         b_np = coded_b.detach().to("cpu", torch.float32).numpy()
         b_op = np.zeros((self.k, packed.t_pad, cb), np.float32)
@@ -283,7 +312,25 @@ class CodedExecutor:
         y = y[:, : packed.c]                            # (k, ca, cb)
         u = plan.hinv @ y.reshape(self.k, -1)
         u = u.reshape((self.k,) + y.shape[1:])
-        return torch.from_numpy(np.ascontiguousarray(u)).to(self.device)
+        u = torch.from_numpy(np.ascontiguousarray(u)).to(self.device)
+        return u if merge is None else merge_unknowns(u, *merge)
+
+    def _decode(self, plan, y, mode, **kw):
+        """One cuda decode launch.  A layout (y's shape, strides and dtype
+        and the scalars) is checked on its first call and then launched
+        without checks: the decode plans' inverse and rows always are
+        f32 and int32 on this executor's device."""
+        rows = plan.rows_dev if mode == "gather" else None
+        if not y.is_cuda:
+            return decode_matmul(plan.hinv_dev, y, mode, rows=rows, **kw)
+        key = (mode, y.shape, y.stride(), y.dtype, *kw.values())
+        layout = self._decode_layouts.get(key)
+        if layout is None:
+            if len(self._decode_layouts) >= 64:
+                self._decode_layouts.clear()
+            layout = self._decode_layouts[key] = prepare_decode(
+                plan.hinv_dev, y, mode, rows=rows, **kw)
+        return launch_decode(layout, plan.hinv_dev, y, rows)
 
     # -- decode-only: worker results supplied by the caller ----------------
 
@@ -292,12 +339,11 @@ class CodedExecutor:
         y = as_tensor(y, self.device)
         if self._fast_path(y, done):
             plan = self.cache.plan(self._all_alive(done))
+            if self.backend == "cuda":
+                return self._decode_gather(plan, y)
             ysub = y[plan.rows_dev.long()].to(torch.float32)
             flat = ysub.reshape(self.k, -1).contiguous()
-            if self.backend == "cuda":
-                u = decode_matmul(plan.hinv_dev, flat)
-            else:
-                u = plan.hinv_dev @ flat
+            u = plan.hinv_dev @ flat
         else:
             ysub = y
             u = self._solve(done, y)
@@ -305,3 +351,16 @@ class CodedExecutor:
         u = torch.movedim(u, 0, -2)
         out = u.reshape(u.shape[:-2] + (self.k * u.shape[-1],))[..., : self.r]
         return out.to(y.dtype)
+
+    def _decode_gather(self, plan, y):
+        """One decode launch: the live rows of y read in place, (..., r)
+        stored in y's dtype.  Other dtypes than f32 and bf16 are decoded
+        from an f32 copy."""
+        yk = y if y.dtype in (torch.float32, torch.bfloat16) else y.float()
+        # (n, L, c): a view unless the middle axes do not merge
+        yk = yk.reshape(yk.shape[0], -1, yk.shape[-1])
+        if yk.shape[2] > 1 and yk.stride(2) != 1:
+            yk = yk.contiguous()
+        r = min(self.r, self.k * yk.shape[2])
+        out = self._decode(plan, yk, "gather", r=r)
+        return out.view(y.shape[1:-1] + (r,)).to(y.dtype)

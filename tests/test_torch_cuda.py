@@ -204,13 +204,120 @@ def test_cyclic_encode(hopper, dtype):
           cyclic_encode_plain(blocks, sup, coef), dtype)
 
 
+MM_KB = {1: 1, 4: 2, 14: 7, 16: 4, 36: 6, 64: 8}
+
+
+def decode_case(mode, k, b, rng, c_pad=32):
+    """y (f32 numpy, NaN in the pad columns) and the wrapper's keywords
+    for one layout; r and w are ragged, and in mv the last unknown is
+    clipped."""
+    if mode == "flat":
+        return rng.standard_normal((k, 29 + 10 * b)).astype(np.float32), {}
+    if mode == "gather":
+        n, c = k + 2, 9 if b != 8 else 12     # c = 12: the vector path
+        lead = (2, b) if b == 3 else (b,)
+        y = rng.standard_normal((n, *lead, c)).astype(np.float32)
+        rows = rng.permutation(n)[:k]
+        return y, {"rows": t(rows, torch.int32).to("cuda"),
+                   "r": max(k * c - 4, 1)}
+    if mode == "mv":
+        c = 13
+        y = rng.standard_normal((k, c_pad, b)).astype(np.float32)
+        kw = {"c": c, "r": max(k * c - 3, 1)}
+    else:
+        kb, c, cb = MM_KB[k], 11, 3 * b + 2 if b != 8 else 32
+        y = rng.standard_normal((k, c_pad, cb)).astype(np.float32)
+        kw = {"c": c, "r": max(k // kb * c - 2, 1), "w": kb * cb - 1,
+              "kb": kb}
+    y[:, c:] = np.nan
+    return y, kw
+
+
+@pytest.mark.parametrize("b", [1, 3, 8, 20])
+@pytest.mark.parametrize("k", [1, 4, 14, 16, 36, 64])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("k", [4, 16, 36, 64])
-def test_decode_matmul(hopper, dtype, k):
-    rng = np.random.default_rng(k)
+@pytest.mark.parametrize("mode", ["flat", "mv", "mm", "gather"])
+def test_decode_matmul(hopper, mode, dtype, k, b):
+    """Every layout, dtype and ragged size against the plain version;
+    NaN in Y's pad columns never reaches the output."""
+    rng = np.random.default_rng(k * 100 + b)
+    y, kw = decode_case(mode, k, b, rng, c_pad=33 if b == 3 else 32)
     h = t(rng.standard_normal((k, k))).to(hopper)
-    y = t(rng.standard_normal((k, 1031)), dtype).to(hopper)
-    close(decode_matmul(h, y), decode_matmul_plain(h, y), dtype)
+    y = t(y, dtype).to(hopper)
+    before = decode_matmul.launches
+    got = decode_matmul(h, y, mode, **kw)
+    torch.cuda.synchronize()
+    assert decode_matmul.launches == before + 1
+    assert got.is_contiguous() and torch.isfinite(got).all()
+    want = decode_matmul_plain(h, y, mode, **kw)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_matmul_lm_head_shapes(hopper, dtype):
+    """The coded LM head's decode: k = 14, c = 2291 of c_pad = 2304, 8
+    requests, r = 32064 (the last unknown clipped), and the gather of
+    the same results, misaligned by one element (the scalar path)."""
+    rng = np.random.default_rng(5)
+    k, c, c_pad, b, r = 14, 2291, 2304, 8, 32064
+    h = t(rng.standard_normal((k, k))).to(hopper)
+    y = t(rng.standard_normal((k, c_pad, b)), dtype).to(hopper)
+    y[:, c:] = float("nan")
+    close(decode_matmul(h, y, "mv", c=c, r=r),
+          decode_matmul_plain(h, y, "mv", c=c, r=r), dtype)
+    ys = t(rng.standard_normal((16 * b * c + 1,)), dtype).to(hopper)
+    ys = ys[1:].view(16, b, c)
+    rows = torch.arange(2, 16, dtype=torch.int32, device=hopper)
+    close(decode_matmul(h, ys, "gather", rows=rows, r=r),
+          decode_matmul_plain(h, ys, "gather", rows=rows, r=r), dtype)
+
+
+@pytest.mark.parametrize("mode,shape,kw", [
+    ("mv", (14, 2304, 8), {"c": 2291, "r": 32064}),
+    ("mm", (16, 64, 40), {"c": 60, "r": 230, "w": 150, "kb": 4}),
+    ("flat", (5, 1000), {})])
+def test_prepared_decode_launches_like_the_checked_call(hopper, mode, shape,
+                                                        kw):
+    """launch_decode of a layout prepare_decode checked once (the
+    executor's path for its own products) computes what decode_matmul
+    does, on fresh tensors of that layout, one launch each."""
+    from repro_torch.kernels.decode_matmul import launch_decode, prepare_decode
+    rng = np.random.default_rng(len(shape) + shape[-1])
+    k = shape[0]
+    h = t(rng.standard_normal((k, k))).to(hopper)
+    layout = prepare_decode(h, torch.empty(shape, device=hopper), mode, **kw)
+    for _ in range(2):
+        y = t(rng.standard_normal(shape)).to(hopper)
+        before = decode_matmul.launches
+        got = launch_decode(layout, h, y)
+        torch.cuda.synchronize()
+        assert decode_matmul.launches == before + 1
+        assert got.is_contiguous()
+        close(got, decode_matmul_plain(h, y, mode, **kw))
+
+
+def test_decode_matmul_gather_reads_strides_in_place(hopper):
+    rng = np.random.default_rng(6)
+    full = t(rng.standard_normal((12, 4, 3, 8))).to(hopper)
+    y = full[::2]
+    h = t(rng.standard_normal((3, 3))).to(hopper)
+    rows = t([4, 0, 2], torch.int32).to(hopper)
+    close(decode_matmul(h, y, "gather", rows=rows, r=21),
+          decode_matmul_plain(h, y.contiguous(), "gather", rows=rows, r=21))
+
+
+def test_decode_matmul_on_a_device_that_is_not_current(hopper):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    rng = np.random.default_rng(8)
+    h = t(rng.standard_normal((4, 4))).to("cuda:0")
+    y = t(rng.standard_normal((4, 32, 8))).to("cuda:0")
+    with torch.cuda.device(1):
+        got = decode_matmul(h, y, "mv", c=30, r=100)
+        assert torch.cuda.current_device() == 1
+    torch.cuda.synchronize(0)
+    close(got, decode_matmul_plain(h, y, "mv", c=30, r=100))
 
 
 def test_wrappers_raise_instead_of_falling_back(hopper):
@@ -225,6 +332,24 @@ def test_wrappers_raise_instead_of_falling_back(hopper):
                       torch.ones(65, 8, device=hopper))
     with pytest.raises(ValueError, match="expected"):
         decode_matmul(torch.ones(4, 4), y)
+    y3 = torch.ones(4, 32, 8, device=hopper)
+    with pytest.raises(ValueError, match="contiguous"):
+        decode_matmul(torch.ones(4, 4, device=hopper),
+                      y3.transpose(1, 2).contiguous().transpose(1, 2), "mv",
+                      c=30, r=100)
+    with pytest.raises(ValueError, match="expected"):
+        decode_matmul(torch.ones(4, 4, device=hopper), y3, "gather",
+                      rows=torch.arange(4, dtype=torch.int32), r=20)
+    with pytest.raises(TypeError, match="int32"):
+        decode_matmul(torch.ones(4, 4, device=hopper), y3, "gather",
+                      rows=torch.arange(4, device=hopper), r=20)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        decode_matmul(torch.ones(4, 4, device=hopper), y3.double(), "mm",
+                      c=30, r=60, w=16, kb=2)
+    with pytest.raises(ValueError, match="stride 1"):
+        decode_matmul(torch.ones(4, 4, device=hopper), y3.transpose(1, 2),
+                      "gather", rows=torch.arange(4, dtype=torch.int32,
+                                                  device=hopper), r=20)
 
 
 def test_plan_on_the_card_matches_the_cpu(hopper):
@@ -259,6 +384,19 @@ def test_plan_on_the_card_matches_the_cpu(hopper):
     after = launch_counts()
     assert {k: after[k] - before[k] for k in after} == {
         "bcsr_matmul": 1, "cyclic_encode": 1, "decode_matmul": 1}
+    assert got.shape == (130, 60) and got.is_contiguous()
     np.testing.assert_allclose(got.cpu().numpy(),
                                cpu.matmat(t(B), done).numpy(),
                                rtol=2e-4, atol=2e-4)
+
+    # decode-only: one launch, no gather, cast or copy around it
+    y = t(rng.standard_normal((20, 3, 33)), torch.bfloat16)
+    before = launch_counts()
+    got = card.executor.decode(y.to(hopper), done)
+    after = launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        "bcsr_matmul": 0, "cyclic_encode": 0, "decode_matmul": 1}
+    assert got.dtype == torch.bfloat16 and got.shape == (3, 130)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               cpu.executor.decode(y, done).float().numpy(),
+                               rtol=2e-2, atol=2e-2)

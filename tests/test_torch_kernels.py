@@ -283,6 +283,130 @@ class TestDecodeMatmul:
         np.testing.assert_allclose(u.numpy(), u_true, rtol=1e-4, atol=1e-4)
 
 
+# Output layouts of decode_matmul, each against the Pallas kernel (run in
+# interpret mode) followed by the same rearrangement in numpy.  Ragged on
+# purpose: r and w are not multiples of the unknowns' widths, and Y's pad
+# columns hold NaN, which must not reach the output.
+MM_KB = {1: 1, 4: 2, 14: 7, 16: 4}
+
+
+def decode_case(mode, k, b, rng):
+    """(y (f32 numpy), kwargs, the k x P operand the Pallas kernel decodes,
+    and numpy's rearrangement of its result)."""
+    if mode == "flat":
+        y = rng.standard_normal((k, 29 + 10 * b)).astype(np.float32)
+        return y, {}, y, lambda u: u
+    if mode == "gather":
+        n, c = k + 2, 9
+        lead = (2, b) if b == 3 else (b,)
+        y = rng.standard_normal((n, *lead, c)).astype(np.float32)
+        rows = rng.permutation(n)[:k]
+        r = max(k * c - 4, 1)
+        kw = {"rows": t(rows, torch.int32), "r": r}
+
+        def rearrange(u):
+            u = np.moveaxis(u.reshape((k, *lead, c)), 0, -2)
+            return u.reshape((*lead, k * c))[..., :r]
+        return y, kw, y[rows].reshape(k, -1), rearrange
+    c_pad = 32
+    if mode == "mv":
+        c = 13
+        y = rng.standard_normal((k, c_pad, b)).astype(np.float32)
+        r = max(k * c - 3, 1)               # the last unknown is clipped
+        kw = {"c": c, "r": r}
+
+        def rearrange(u):
+            u = u.reshape(k, c, b).transpose(2, 0, 1)
+            return u.reshape(b, k * c)[:, :r]
+    else:
+        kb, c, cb = MM_KB[k], 11, 3 * b + 2
+        ka = k // kb
+        y = rng.standard_normal((k, c_pad, cb)).astype(np.float32)
+        r, w = max(ka * c - 2, 1), kb * cb - 1
+        kw = {"c": c, "r": r, "w": w, "kb": kb}
+
+        def rearrange(u):
+            u = u.reshape(ka, kb, c, cb).transpose(0, 2, 1, 3)
+            return u.reshape(ka * c, kb * cb)[:r, :w]
+    operand = y[:, :c].reshape(k, -1).copy()
+    y[:, c:] = np.nan                       # pad columns: never decoded
+    return y, kw, operand, rearrange
+
+
+@pytest.mark.parametrize("b", [1, 3, 8])
+@pytest.mark.parametrize("k", [1, 4, 14, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("mode", ["flat", "mv", "mm", "gather"])
+def test_decode_matmul_layouts_vs_pallas(mode, dtype, k, b):
+    rng = np.random.default_rng(1000 * k + 10 * b + len(mode))
+    y, kw, operand, rearrange = decode_case(mode, k, b, rng)
+    h = rng.standard_normal((k, k)).astype(np.float32)
+    yt = t(y, dtype)
+    # the Pallas kernel on the same values (bf16 inputs as stored)
+    op = t(operand, dtype).float().numpy()
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    want = rearrange(np.asarray(pallas_decode(
+        jnp.asarray(h), jnp.asarray(op, jdt), bp=op.shape[1],
+        interpret=True)))
+    got = decode_matmul(t(h), yt, mode, **kw)
+    out_dtype = dtype if mode == "gather" else torch.float32
+    assert got.dtype == out_dtype and got.is_contiguous()
+    assert got.shape == want.shape
+    assert torch.isfinite(got).all()
+    close(got.float(), want, TOL if dtype == torch.float32 else TOL_BF16)
+    np.testing.assert_array_equal(
+        got.float().numpy(),
+        decode_matmul_plain(t(h), yt, mode, **kw).float().numpy())
+
+
+@pytest.mark.parametrize("mode", ["flat", "mv", "mm", "gather"])
+def test_prepare_decode_describes_the_result(mode):
+    """prepare_decode, which checks a layout once for launch_decode, gives
+    the plain version's result shape and dtype, and the C launcher's
+    geometry (dtype codes, k, then the layout's scalars)."""
+    from repro_torch.kernels.decode_matmul import prepare_decode
+    rng = np.random.default_rng(len(mode))
+    y, kw, _, _ = decode_case(mode, 14, 3, rng)
+    h, yt = t(rng.standard_normal((14, 14))), t(y, torch.bfloat16)
+    layout = prepare_decode(h, yt, mode, **kw)
+    want = decode_matmul_plain(h, yt, mode, **kw)
+    assert layout.like.shape == want.shape
+    assert layout.like.dtype == want.dtype and not layout.empty
+    geometry = list(layout.geometry)
+    assert geometry[:3] == [1, 1 if mode == "gather" else 0, 14]
+    assert len(geometry) == 13
+
+
+def test_decode_matmul_gather_reads_strided_workers():
+    """gather reads worker rows through y's strides: a worker-strided
+    slice and merged lead axes need no copy."""
+    rng = np.random.default_rng(21)
+    full = t(rng.standard_normal((12, 4, 3, 7)))
+    y = full[::2]                             # worker stride 2 * 84
+    assert not y.is_contiguous()
+    h, rows = t(rng.standard_normal((3, 3))), t([4, 0, 2], torch.int32)
+    got = decode_matmul(h, y, "gather", rows=rows, r=19)
+    want = decode_matmul_plain(h, y.contiguous(), "gather", rows=rows, r=19)
+    assert got.shape == (4, 3, 19)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("mode,kw,y_shape,msg", [
+    ("mv", {"c": 40, "r": 10}, (4, 32, 3), "c=40"),
+    ("mv", {"c": 8, "r": 33}, (4, 32, 3), "r=33"),
+    ("mm", {"c": 8, "r": 10, "w": 9, "kb": 3}, (4, 32, 3), "kb=3"),
+    ("mm", {"c": 8, "r": 17, "w": 6, "kb": 2}, (4, 32, 3), "r=17"),
+    ("mm", {"c": 8, "r": 16, "w": 7, "kb": 2}, (4, 32, 3), "w=7"),
+    ("gather", {"r": 5}, (6, 2, 3), "rows"),
+    ("flat", {}, (4, 5, 6), "y must be"),
+    ("other", {}, (4, 5), "unknown decode mode"),
+])
+def test_decode_matmul_rejects_bad_layouts(mode, kw, y_shape, msg):
+    with pytest.raises(ValueError, match=msg):
+        decode_matmul(torch.ones(4, 4), torch.ones(y_shape), mode, **kw)
+
+
 def test_cpu_tensors_take_the_plain_version():
     """On the CPU the wrappers run the plain versions and launch
     nothing: the counters count launches only."""

@@ -331,6 +331,51 @@ def test_plan_from_reference_arrays_bf16_shards():
 
 
 # ---------------------------------------------------------------------------
+# The cuda backend's decode layouts, every straggler pattern
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("x_shape", [(40,), (1, 40), (3, 40)],
+                         ids=["vector", "batch1", "batch3"])
+def test_cuda_matvec_layout_all_patterns(x_shape):
+    """plan.matvec on cuda (plain versions on CPU tensors) stores (b, r)
+    straight from the decode: r = 30 clips the last unknown (k_A = 4,
+    c = 8), and a 1-D x returns (r,)."""
+    rng = np.random.default_rng(len(x_shape) * 7 + x_shape[0])
+    A = rng.standard_normal((40, 30)).astype(np.float32)
+    x = rng.standard_normal(x_shape).astype(np.float32)
+    jplan = japi.compile_plan(jnp.asarray(A), scheme="proposed", n=6, s=2,
+                              backend="packed", seed=5)
+    plan = tapi.compile_plan(torch.from_numpy(A), scheme="proposed", n=6,
+                             s=2, backend="cuda", seed=5)
+    for done in all_masks(6, 2):
+        got = plan.matvec(torch.from_numpy(x), done)
+        want = np.asarray(jplan.matvec(jnp.asarray(x), jnp.asarray(done)))
+        assert got.shape == want.shape == x_shape[:-1] + (30,)
+        assert got.is_contiguous()
+        close(got, want, TIGHT)
+
+
+@pytest.mark.parametrize("r,w", [(30, 22), (32, 24), (25, 9)])
+def test_cuda_matmat_layout_all_patterns(r, w):
+    """plan.matmat on cuda gets (r, w) from one decode; r and w need not
+    be multiples of k_A * 32 or k_B."""
+    rng = np.random.default_rng(r * w)
+    A = rng.standard_normal((36, r)).astype(np.float32)
+    B = rng.standard_normal((36, w)).astype(np.float32)
+    jplan = japi.compile_plan(jnp.asarray(A), scheme="proposed", n=6, k_A=2,
+                              k_B=2, backend="packed", seed=2)
+    plan = tapi.compile_plan(torch.from_numpy(A), scheme="proposed", n=6,
+                             k_A=2, k_B=2, backend="cuda", seed=2)
+    for done in all_masks(6, 2):
+        got = plan.matmat(torch.from_numpy(B), done)
+        want = np.asarray(jplan.matmat(jnp.asarray(B), jnp.asarray(done)))
+        assert got.shape == want.shape == (r, w) and got.is_contiguous()
+        close(got, want, TIGHT)
+        close(got, A.T @ B, dict(rtol=1e-3, atol=1e-3))
+
+
+# ---------------------------------------------------------------------------
 # The whole slice
 # ---------------------------------------------------------------------------
 

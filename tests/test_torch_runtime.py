@@ -281,6 +281,65 @@ class TestExecutorParity:
                 close(got, want_p)
                 close(got, want_k)
 
+    @pytest.mark.parametrize("layout", [
+        "two-lead-axes", "bf16", "f64", "no-lead", "worker-strided",
+        "last-axis-strided", "lead-axes-do-not-merge"])
+    def test_decode_layouts_all_patterns(self, layout):
+        """decode on cuda (one gather launch on the card; the plain
+        version here) takes y as the caller passes it: any lead axes,
+        strides and dtype, and returns (..., r) in y's dtype."""
+        n, k, t, r = 6, 4, 32, 22
+        rng = np.random.default_rng(len(layout))
+        A, coded, G = build_mv(rng, n, k, t, r)
+        base = torch.from_numpy(rng.standard_normal((2 * n, 3, 5, 6))
+                                .astype(np.float32))
+        y = {"two-lead-axes": base[:n],
+             "bf16": base[:n, 0].to(torch.bfloat16),
+             "f64": base[:n, 0].double(),
+             "no-lead": base[:n, 0, 0],
+             "worker-strided": base[::2, 1],
+             "last-axis-strided":
+                 base.reshape(2 * n, 3, 6, 5)[:n, 0].transpose(1, 2),
+             "lead-axes-do-not-merge": base[:n].transpose(1, 2)}[layout]
+        j = jrt.CodedExecutor(coded, G, k, r, backend="packed")
+        ex = trt.CodedExecutor(torch.from_numpy(coded), G, k, r,
+                               backend="cuda")
+        jy = jnp.asarray(y.float().numpy(),
+                         jnp.bfloat16 if layout == "bf16" else jnp.float32)
+        tol = dict(rtol=2e-2, atol=2e-2) if layout == "bf16" else TOL
+        for done in all_masks(n, n - k):
+            got = ex.decode(y, done)
+            want = np.asarray(j.decode(jy, done), np.float32)
+            assert got.dtype == y.dtype
+            assert got.shape == want.shape == y.shape[1:-1] + (r,)
+            close(got.float(), want, tol)
+
+    def test_matmat_merge_on_every_backend(self):
+        """matmat(merge=(k_A, k_B, r, w)) is A^T B (r, w) on every
+        backend; the cuda decode stores it directly."""
+        n, ka, kb, t, ca, cb = 6, 2, 2, 64, 40, 12
+        rng = np.random.default_rng(31)
+        ra, rb = mm_encoding_matrices(proposed_mm(n, ka, kb), 0)
+        G = khatri_rao_rows(ra, rb)
+        A = rng.standard_normal((t, ka * ca)).astype(np.float32)
+        B = rng.standard_normal((t, kb * cb)).astype(np.float32)
+        coded_a = np.einsum("nk,ktc->ntc", ra, np.asarray(
+            j_split(jnp.asarray(A), ka))).astype(np.float32)
+        coded_b = torch.from_numpy(np.einsum("nk,ktc->ntc", rb, np.asarray(
+            j_split(jnp.asarray(B), kb))).astype(np.float32))
+        r, w = ka * ca - 3, kb * cb - 5
+        done = np.array([1, 0, 1, 1, 0, 1], bool)
+        for backend in ("cuda", "packed", "reference"):
+            ex = trt.CodedExecutor(torch.from_numpy(coded_a), G, ka * kb,
+                                   ka * ca, backend=backend)
+            got = ex.matmat(coded_b, done, merge=(ka, kb, r, w))
+            assert got.shape == (r, w)
+            close(got, (A.T @ B)[:r, :w], dict(rtol=1e-3, atol=1e-3))
+            close(got, trt.merge_unknowns(ex.matmat(coded_b, done), ka, kb,
+                                          r, w))
+        with pytest.raises(ValueError, match="k_A \\* k_B"):
+            ex.matmat(coded_b, done, merge=(ka, 3, r, w))
+
     def test_reference_backend_matches(self):
         n, k, t, r = 6, 4, 32, 24
         rng = np.random.default_rng(10)
