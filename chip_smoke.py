@@ -36,13 +36,24 @@ Phases, one JSON line each:
   5. census -- one matvec and one matmat under ``torch.profiler``: every
      device kernel they launch, in order, and the device's busy share of
      the call's p50 wall time.  The decode must be the last kernel: no
-     copy or permute follows it.
+     copy or permute follows it;
+  6. serve  -- the port's serving path at phi3-mini-3.8b's full width,
+     through ``repro_torch.launch.serve``'s own steps with the launcher's
+     defaults: the bf16 model built and drawn from ``--seed`` on the card,
+     the engine with its coded LM head (n=6, s=2), 8 requests in waves of
+     4, 16 new tokens, and the launcher's coded-head check; then the
+     checks: prefill and decode logits against a fresh forward (bf16, and
+     in f32 on the same weights), the coded head against ``hidden @
+     head`` in f64 under 5 of the engine's own straggler masks (with
+     kappa), the launch counts (1 ``cyclic_encode`` at build, none while
+     serving, 1 ``bcsr_matmul`` + 1 ``decode_matmul`` per coded call), a
+     ``census`` of one coded call, and the three kernels at this geometry.
 
-Launch counters are set to 0 just before each main path and read just
-after: every encode must have gone through ``cyclic_encode``, every
-worker product through ``bcsr_matmul`` (one launch per matvec and per
-matmat) and every decode through ``decode_matmul`` (one per matvec,
-matmat and ``decode``).  Any failure raises and exits non-zero.  The
+Launch counters are set to 0 just before each main path (mv, mm,
+serve) and read just after: every encode must have gone through
+``cyclic_encode``, every worker product through ``bcsr_matmul`` (one
+launch per matvec and per matmat) and every decode through
+``decode_matmul`` (one per matvec, matmat and ``decode``).  Any failure raises and exits non-zero.  The
 last three lines are the kernel table, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.
 
@@ -55,6 +66,8 @@ this card, one ``ab`` line per run and a summary.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import subprocess
 import sys
@@ -84,6 +97,8 @@ from repro_torch.kernels.decode_matmul import (  # noqa: E402
     launch_decode,
     prepare_decode,
 )
+from repro_torch.launch import serve as launcher  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
 from repro_torch.runtime import encode_blocks, support_tables  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 rate, f32 FFMA rate, and the
@@ -169,39 +184,68 @@ def peak_rate(*operands: torch.Tensor) -> float:
     return F32_FLOPS_PER_S
 
 
-def trace(fn):
+# host time a trace holds on each side of the traced calls: the profiler
+# keeps only the device activities whose timestamps, once converted to
+# the host's clock, fall inside its window, and a launch at either edge
+# of a tight window can fall outside it (on an H100, one launch of 20,
+# in three traces in a row)
+TRACE_MARGIN_S = 0.05
+
+
+def trace(fn, edges: list | None = None):
     """The device activities of ``fn()`` in a ``torch.profiler`` trace:
-    (name, start us, end us) in start order."""
+    (name, start us, end us) in start order.  ``edges``, when given,
+    gets the host ops' first start and last end (us) appended."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_MARGIN_S)
         fn()
         torch.cuda.synchronize()
+        time.sleep(TRACE_MARGIN_S)
+    events = prof.events()
     acts = [(e.name, e.time_range.start, e.time_range.end)
-            for e in prof.events() if e.device_type == DeviceType.CUDA]
+            for e in events if e.device_type == DeviceType.CUDA]
+    if edges is not None:
+        host = [e.time_range for e in events
+                if e.device_type == DeviceType.CPU]
+        edges.append((min((r.start for r in host), default=None),
+                      max((r.end for r in host), default=None)))
     return sorted(acts, key=lambda a: a[1])
 
 
-# the profiler now and then loses device activities from a trace (on an
-# H100, one launch of 20 in one run), so a trace that lacks launches the
-# counters saw is taken again, this many times in all
-TRACE_ATTEMPTS = 3
+# a trace that lacks launches the counters saw is taken again, this many
+# times in all
+TRACE_ATTEMPTS = 5
 
 
 def trace_whole(what: str, fn, ran) -> tuple[list, int]:
     """``trace(fn)`` and the attempt it took, retaken while ``ran(acts)``
     (the port kernels the trace shows, by name) differs from the launches
     ``fn`` makes on the launch counters."""
+    seen = []
     for attempt in range(1, TRACE_ATTEMPTS + 1):
         before = launch_counts()
-        acts = trace(fn)
+        edges: list = []
+        acts = trace(fn, edges)
         launched = {k: v - before[k] for k, v in launch_counts().items()}
         if ran(acts) == launched:
             return acts, attempt
+        # where the device activities lie against the host ops (us): the
+        # device starts after the host issues and ends before it syncs
+        host_start, host_end = edges[0]
+        seen.append({
+            "device_activities": len(acts),
+            "first_device_after_host_us": (
+                None if not acts or host_start is None
+                else acts[0][1] - host_start),
+            "last_device_before_host_end_us": (
+                None if not acts or host_end is None
+                else host_end - max(a[2] for a in acts))})
     raise AssertionError(f"{what}: {TRACE_ATTEMPTS} traces show "
                          f"{ran(acts)} port launches, the counters "
-                         f"{launched}")
+                         f"{launched}; traces {seen}")
 
 
 def kernel_of(activity_name: str) -> str | None:
@@ -407,7 +451,8 @@ def check_encode(blocks, sup, coef, R, case, reps) -> dict:
         flops_per_s=F32_FLOPS_PER_S, reps=reps, plain_reps=2)
 
 
-def check_decode(hinv, y, mode: str, reps: int, **kw) -> dict:
+def check_decode(hinv, y, mode: str, reps: int, case: str | None = None,
+                 **kw) -> dict:
     """decode_matmul storing one caller's layout (mode), against its plain
     version.  Yardsticks: ``torch.matmul`` of the same operand alone
     (library_ms), and followed by the rearrangement that produced the
@@ -458,7 +503,7 @@ def check_decode(hinv, y, mode: str, reps: int, **kw) -> dict:
     def call():
         return launch_decode(layout, hinv, y, rows)
     return check_kernel(
-        "decode_matmul", mode, call,
+        "decode_matmul", case or mode, call,
         lambda: decode_matmul_plain(hinv, y, mode, **kw),
         library, dtype=y.dtype, nbytes=nbytes, flops=2.0 * k * out.numel(),
         flops_per_s=F32_FLOPS_PER_S, reps=reps, plain_reps=reps,
@@ -774,6 +819,277 @@ def census(label: str, fn, p50_ms: float, want: dict) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the serving path at full width (repro_torch.launch.serve)
+# ---------------------------------------------------------------------------
+
+
+class StepTimer:
+    """CUDA events around each call of the engine's prefill and decode."""
+
+    def __init__(self, engine):
+        self.events = {"prefill": [], "decode": []}
+        engine._prefill = self._wrap("prefill", engine._prefill)
+        engine._decode = self._wrap("decode", engine._decode)
+
+    def _wrap(self, kind: str, fn):
+        def call(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args)
+            end.record()
+            self.events[kind].append((start, end))
+            return out
+        return call
+
+    def ms(self, kind: str) -> list[float]:
+        torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.events[kind]]
+
+
+@contextlib.contextmanager
+def timed_compiles(seconds: list):
+    """Time each ``compile_plan`` the serve engine makes (the coded head's
+    encode and pack, ending in a synchronise) into ``seconds``."""
+    import repro_torch.serve.engine as engine_module
+
+    real = engine_module.compile_plan
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        plan = real(*args, **kw)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        return plan
+
+    engine_module.compile_plan = timed
+    try:
+        yield
+    finally:
+        engine_module.compile_plan = real
+
+
+def launcher_call(fn, *args):
+    """Run one of the launcher's steps -> (result, the lines it printed)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue().splitlines()
+
+
+def decode_step_bytes(model, batch: int, context: float) -> float:
+    """Bytes one decode step must move: every weight once (of the
+    embedding only the batch's rows), the K/V of ``context`` positions
+    per layer, the logits written once."""
+    cfg = model.cfg
+    esz = model.embed.element_size()
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    if not cfg.tie_embeddings:
+        weights += (batch - cfg.vocab) * cfg.d_model * esz
+    kv = (2 * batch * context * cfg.attn.n_kv_heads * cfg.attn.head_dim
+          * esz * cfg.n_layers)
+    return weights + kv + batch * cfg.vocab * 4
+
+
+def left_padded(prompts) -> np.ndarray:
+    """A wave's tokens as the engine lays them out (left-padded with 0)."""
+    plen = max(len(p) for p in prompts)
+    toks = np.zeros((len(prompts), plen), np.int32)
+    for j, p in enumerate(prompts):
+        toks[j, plen - len(p):] = p
+    return toks
+
+
+def check_cache(model, toks: np.ndarray, max_len: int, limit: float
+                ) -> dict:
+    """Prefill then one decode step, against a fresh forward over the
+    prompt plus that token: each set of logits within ``limit`` x
+    max|logit| of the forward's at the same position."""
+    with torch.inference_mode():
+        last, cache = model.prefill(toks, max_len=max_len)
+        nxt = last.argmax(dim=-1)
+        step, _ = model.decode_step(cache, nxt[:, None])
+        full, _ = model(torch.cat([torch.as_tensor(toks, device=nxt.device),
+                                   nxt[:, None].int()], dim=1))
+    row = {"dtype": str(model.dtype).removeprefix("torch."),
+           "limit": limit}
+    for key, got, want in (("prefill", last, full[:, -2]),
+                           ("decode", step, full[:, -1])):
+        row[f"{key}_rel_err"] = rel_err(got, want.double())
+        if not row[f"{key}_rel_err"] <= limit:
+            raise AssertionError(f"serve cache {key}: {row}")
+    return row
+
+
+def step_census(model, toks: np.ndarray, max_len: int, reps: int = 5
+                ) -> dict:
+    """One decode step of a prefilled wave under ``torch.profiler``: its
+    device kernels, the device's busy share of the step's p50 wall time
+    (host clock, untraced), and the kernels that take the most device
+    time.  The step launches none of the port's kernels."""
+    with torch.inference_mode():
+        _, cache = model.prefill(toks, max_len=max_len)
+        nxt = torch.ones((toks.shape[0], 1), dtype=torch.long,
+                         device=model.device)
+
+        def step():
+            # the same slot is written each time: the cache stays valid
+            return model.decode_step(cache, nxt)
+        p50 = host_p50_ms(step, reps)
+        acts, attempts = trace_whole("decode step", step, traced_ran)
+    busy = busy_us(acts) / 1e3
+    by_name: dict = {}
+    for name, start, end in acts:
+        key = name.removeprefix("void ").split("<")[0].split("(")[0][:60]
+        by_name[key] = by_name.get(key, 0.0) + (end - start) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    row = {"call": "decode_step", "device_kernels": len(acts),
+           "device_busy_ms": busy, "p50_ms": p50, "busy_share": busy / p50,
+           "idle_share": 1.0 - busy / p50,
+           "top_kernels_ms": [[k, v] for k, v in top], "traces": attempts}
+    emit("census", **row)
+    if any(traced_ran(acts).values()):
+        raise AssertionError(f"decode step: port kernels {traced_ran(acts)}")
+    return row
+
+
+def phase_serve(seed: int, dev, gen, arch: str = "phi3-mini-3.8b",
+                smoke: bool = False) -> dict:
+    """The launcher's path (``build``, ``make_requests``, ``serve``,
+    ``check_coded_head``) with its defaults, then the serve checks."""
+    argv = ["--arch", arch, "--coded", "--seed", str(seed),
+            "--device", str(dev)] + (["--smoke"] if smoke else [])
+    args = launcher.parse_args(argv)
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path: build, serve, the launcher's coded-head check
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    compile_s = []
+    with timed_compiles(compile_s):
+        (cfg, model, params, engine), printed = launcher_call(
+            launcher.build, args)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    expect_counts("serve build", launch_counts(), bcsr_matmul=0,
+                  cyclic_encode=1, decode_matmul=0)
+    plan = engine.coded
+    timer = StepTimer(engine)
+    rng = np.random.default_rng(args.seed)
+    reqs = launcher.make_requests(args, cfg, rng)
+    before = launch_counts()
+    t0 = time.perf_counter()
+    out, lines = launcher_call(launcher.serve, engine, reqs)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    printed += lines
+    expect_counts("serving", launched_since(before), bcsr_matmul=0,
+                  cyclic_encode=0, decode_matmul=0)
+    before = launch_counts()
+    worst, lines = launcher_call(launcher.check_coded_head, args, cfg,
+                                 params, engine, rng)
+    printed += lines
+    expect_counts("launcher coded check", launched_since(before),
+                  bcsr_matmul=5, cyclic_encode=0, decode_matmul=5)
+    counts = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    tokens = sum(len(r.output) for r in out)
+    if len(out) != args.requests or any(
+            len(r.output) != args.max_new for r in out):
+        raise AssertionError(f"serve: {[len(r.output) for r in out]} "
+                             f"tokens for {args.requests} requests")
+    if not all(0 <= t < cfg.vocab for r in out for t in r.output):
+        raise AssertionError("serve: a token outside the vocabulary")
+    prefill_ms = timer.ms("prefill")
+    decode_ms = timer.ms("decode")
+    contexts = [len(r.prompt) for r in reqs]
+    context = float(np.mean(contexts)) + args.max_new / 2
+    bound_ms = decode_step_bytes(model, args.batch, context) \
+        / HBM_BYTES_PER_S * 1e3
+
+    # the coded head against f64 truth under the engine's own masks
+    head = params["embed"].T if cfg.tie_embeddings else params["head"]
+    hidden = torch.randn((2, cfg.d_model), generator=gen, device=dev)
+    ref = hidden.double() @ head.double()
+    dtype = plan.executor.coded.dtype
+    patterns, masks = [], []
+    for _ in range(5):
+        done = engine._straggler_mask()
+        masks.append(done)
+        before = launch_counts()
+        got = engine.coded_logits(hidden, done)
+        expect_counts("one coded_logits", launched_since(before),
+                      bcsr_matmul=1, cyclic_encode=0, decode_matmul=1)
+        if got.shape != (2, cfg.vocab) or got.dtype != hidden.dtype:
+            raise AssertionError(f"coded_logits: {got.dtype} {got.shape}")
+        patterns.append(check_decoded(
+            "serve", dtype, plan, done, got, ref, cfg.d_model,
+            lambda rows: mv_stored_decode(plan, rows, hidden, cfg.vocab)))
+    coded_p50 = host_p50_ms(lambda: engine.coded_logits(hidden, masks[0]),
+                            20)
+
+    # cache consistency, bf16 and then f32 on the same weights
+    waves = [r.prompt for r in reqs[: args.batch]]
+    toks = left_padded(waves)
+    before = launch_counts()
+    cache_checks = [check_cache(model, toks, args.max_len, 2e-2)]
+    step = step_census(model, toks, args.max_len)
+    model32 = build_model(cfg, torch.float32, device=dev)
+    model32.load_state_dict(params)
+    cache_checks.append(check_cache(model32, toks, args.max_len, 2e-4))
+    del model32
+    expect_counts("prefill and decode", launched_since(before),
+                  bcsr_matmul=0, cyclic_encode=0, decode_matmul=0)
+
+    emit("serve", arch=cfg.name, dtype=str(model.dtype).removeprefix(
+        "torch."), params_b=sum(p.numel() for p in model.parameters()) / 1e9,
+         requests=args.requests, batch=args.batch, max_new=args.max_new,
+         max_len=args.max_len, n=plan.n, s=plan.s, k=plan.k,
+         scheme=plan.scheme.name, backend=plan.backend, served=len(out),
+         tokens=tokens, serve_s=serve_s, tokens_per_s=tokens / serve_s,
+         build_s=build_s, coded_compile_s=compile_s[0],
+         prefill_ms=prefill_ms,
+         decode_steps=len(decode_ms),
+         decode_step_p50_ms=float(np.median(decode_ms)),
+         decode_step_ms_min=min(decode_ms), decode_step_ms_max=max(decode_ms),
+         bound_ms=bound_ms, bound_by="bytes",
+         bound_note="weights + K/V at the mean context over 3.35 TB/s",
+         peak_memory_gb=peak_gb, launcher_worst_rel_err=worst,
+         coded_patterns=patterns, coded_logits_p50_ms=coded_p50,
+         decode_step_busy_share=step["busy_share"],
+         cache=cache_checks, launches=counts, printed=printed)
+    return {"engine": engine, "hidden": hidden, "done": masks[0],
+            "counts": counts, "p50": coded_p50}
+
+
+def kernels_serve(serve: dict, reps: int) -> list[dict]:
+    """The three kernels at the serve geometry: the head's encode at
+    build, and one coded_logits call's product and decode."""
+    engine, hidden, done = serve["engine"], serve["hidden"], serve["done"]
+    plan = engine.coded
+    ex = plan.executor
+    dplan = ex.cache.plan(done)
+    rows = [check_bcsr_mv(plan, hidden, done, "serve", reps)]
+    head = engine.params["embed"].T if engine.cfg.tie_embeddings \
+        else engine.params["head"]
+    R = mv_encoding_matrix(plan.scheme, plan.seed)
+    sup, coef = support_tables(plan.scheme.supports, R)
+    blocks = split_block_columns(head, plan.scheme.k_A)
+    if blocks.stride(-1) != 1:          # a tied head: encode_blocks' copy
+        blocks = blocks.contiguous()
+    rows.append(check_encode(
+        blocks, torch.as_tensor(sup, device=head.device),
+        torch.as_tensor(coef, device=head.device), R, "serve", 3))
+    y = bcsr_matmul(ex.packed.a_data, ex.packed.a_idx, hidden.T.contiguous(),
+                    dplan.rows_dev, mb=ex.packed.mb, counts=ex.packed.counts)
+    rows.append(check_decode(dplan.hinv_dev,
+                             y.view(ex.k, ex.packed.c_pad, -1), "mv", reps,
+                             case="serve", c=ex.packed.c, r=ex.r))
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -814,6 +1130,16 @@ def main(argv=None) -> int:
     mm_counts = mm["counts"]
     del mm
     torch.cuda.synchronize()
+    serve = phase_serve(args.seed, dev, gen)
+    rows += kernels_serve(serve, reps=50)
+    census("coded_logits",
+           lambda: serve["engine"].coded_logits(serve["hidden"],
+                                                serve["done"]),
+           serve["p50"], {"bcsr_matmul": 1, "cyclic_encode": 0,
+                          "decode_matmul": 1})
+    serve_counts = serve["counts"]
+    del serve
+    torch.cuda.synchronize()
 
     if args.parent is not None:
         root = Path(__file__).resolve().parent
@@ -833,7 +1159,8 @@ def main(argv=None) -> int:
         table.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": mv_counts[name] + mm_counts[name],
+            "launches": (mv_counts[name] + mm_counts[name]
+                         + serve_counts[name]),
             "max_abs_err": main_row["max_abs_err"], "ms": main_row["ms"],
             "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],

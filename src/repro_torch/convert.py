@@ -12,8 +12,32 @@ side exports them as numpy arrays, for example::
     # mm plans add "rb", "sup_b", "coef_b"
 
 and ``plan_from_reference_arrays`` builds a port ``CodedPlan`` that
-holds exactly those shards, without re-encoding.  This module imports
-nothing of the JAX package: only numpy arrays cross.
+holds exactly those shards, without re-encoding.
+
+A model's weights cross the same way.  The JAX ``TransformerLM``'s
+params tree (``jax.tree.map(np.asarray, params)``) is::
+
+    {"embed": (vocab, d),
+     "groups": {"l{i}": {"norm1": (G, d), "norm2": (G, d),
+                         "attn": {"wq": (G, d, H*hd), "wk": (G, d, KV*hd),
+                                  "wv": (G, d, KV*hd), "wo": (G, H*hd, d),
+                                  "q_norm": (G, hd), "k_norm": (G, hd)},
+                         "mlp": {"w_gate": (G, d, f), "w_up": (G, d, f),
+                                 "w_down": (G, f, d)}}},
+     "final_norm": (d,),
+     "head": (d, vocab)}            # untied heads only
+
+with every ``groups`` leaf stacked over the G = ``n_groups`` repeats of
+the layer pattern (``q_norm``/``k_norm`` with qk-norm only, no
+``w_gate`` for a gelu FFN).  The port's state dict unstacks them: layer
+``g * len(pattern) + i`` is ``groups/l{i}`` at index g, under the keys
+``layers.{L}.norm1``, ``layers.{L}.attn.wq``, ``layers.{L}.mlp.w_up``
+and so on; ``embed``, ``final_norm`` and ``head`` keep their names.
+``model_params_from_reference`` and ``model_params_to_reference`` map
+one onto the other; bf16 keeps its bits both ways.
+
+This module imports nothing of the JAX package: only numpy arrays
+cross.
 """
 
 from __future__ import annotations
@@ -76,3 +100,68 @@ def plan_from_reference_arrays(meta: dict, arrays: dict, *,
             plan._coef_b = torch.as_tensor(
                 np.asarray(arrays["coef_b"], np.float32), device=dev)
     return plan.prewarm()
+
+
+def _groups_keys(cfg):
+    """(layer index, pattern position, group) for every layer."""
+    p = len(cfg.pattern)
+    return [(g * p + i, i, g) for g in range(cfg.n_groups) for i in range(p)]
+
+
+def _flatten(tree: dict, prefix: str = ""):
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            yield from _flatten(val, f"{prefix}{key}.")
+        else:
+            yield f"{prefix}{key}", val
+
+
+def model_params_from_reference(params: dict, cfg, *, device=None) -> dict:
+    """The port's state dict for the JAX model params ``params`` (numpy
+    arrays, in the layout of the module docstring), on ``device``."""
+    dev = resolve_device(device)
+    out = {"embed": _tensor(params["embed"], dev),
+           "final_norm": _tensor(params["final_norm"], dev)}
+    if "head" in params:
+        out["head"] = _tensor(params["head"], dev)
+    groups = params["groups"]
+    for layer, i, g in _groups_keys(cfg):
+        for name, arr in _flatten(groups[f"l{i}"]):
+            out[f"layers.{layer}.{name}"] = _tensor(np.asarray(arr)[g], dev)
+    return out
+
+
+def _array(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a host array; bf16 becomes ``ml_dtypes.bfloat16`` (the
+    dtype JAX gives a bf16 array) with the same bits."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes  # noqa: PLC0415 - only for bf16 weights
+
+        return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def model_params_to_reference(state_dict: dict, cfg) -> dict:
+    """The JAX model params tree (numpy arrays) for the port's state
+    dict: the inverse of ``model_params_from_reference``."""
+    out = {"embed": _array(state_dict["embed"]),
+           "final_norm": _array(state_dict["final_norm"])}
+    if "head" in state_dict:
+        out["head"] = _array(state_dict["head"])
+    stacked: dict = {}
+    for layer, i, _ in _groups_keys(cfg):
+        prefix = f"layers.{layer}."
+        for key, val in state_dict.items():
+            if key.startswith(prefix):
+                stacked.setdefault((i, key[len(prefix):]), []).append(
+                    _array(val))
+    groups: dict = {}
+    for (i, name), arrs in stacked.items():
+        node = groups.setdefault(f"l{i}", {})
+        *path, leaf = name.split(".")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = np.stack(arrs)
+    out["groups"] = groups
+    return out

@@ -1,9 +1,10 @@
 """Core library: sparsity-preserving straggler-optimal coded matrix computation.
 
-The scheme math (``weights``, ``assignment``, ``encoding``, ``decoding``)
-is numpy, a copy of ``repro.core``'s so that every support, encoding
-matrix and system matrix is bitwise the reference's; ``coded_matmul``
-runs the pipeline on tensors.
+The scheme math (``weights``, ``assignment``, ``encoding``, ``decoding``,
+``stability``, ``straggler``) is numpy, a copy of ``repro.core``'s so
+that every support, encoding matrix, system matrix, coefficient search
+and straggler sample is bitwise the reference's; ``coded_matmul`` runs
+the pipeline on tensors.
 """
 
 from .assignment import (  # noqa: F401
@@ -56,6 +57,15 @@ from .encoding import (  # noqa: F401
     mm_encoding_matrices,
     mv_encoding_matrix,
     support_mask,
+)
+from .stability import CoefficientSearchResult, find_good_coefficients  # noqa: F401
+from .straggler import (  # noqa: F401
+    AdversarialSlow,
+    ShiftedExponential,
+    completion_order,
+    fastest_k,
+    job_time,
+    simulate_job,
 )
 from .weights import (  # noqa: F401
     MMWeights,

@@ -112,3 +112,62 @@ def test_decode_and_stability_reports_match():
     np.testing.assert_array_equal(
         port_core.khatri_rao_rows(G[:, :2], G[:, 2:]),
         ref_core.khatri_rao_rows(G[:, :2], G[:, 2:]))
+
+
+@pytest.mark.parametrize("name,kw,trials", [
+    ("proposed", {"n": 6, "s": 2}, 8),
+    ("cyclic31", {"n": 9, "k_A": 6}, 3),
+    ("poly", {"n": 6, "s": 2}, 5),
+    ("proposed", {"n": 10, "k_A": 2, "k_B": 4, "kind": "mm"}, 2),
+])
+def test_find_good_coefficients_bitwise(name, kw, trials):
+    port = port_core.find_good_coefficients(
+        port_api.make_scheme(name, **kw), trials=trials, max_patterns=64)
+    ref = ref_core.find_good_coefficients(
+        ref_api.make_scheme(name, **kw), trials=trials, max_patterns=64)
+    assert port.best_seed == ref.best_seed
+    assert port.best_kappa_worst == ref.best_kappa_worst
+    assert port.per_trial_kappas == ref.per_trial_kappas
+    assert (dataclasses.astuple(port.report)
+            == dataclasses.astuple(ref.report))
+    assert port.wall_time_s >= 0.0
+
+
+def test_straggler_models_bitwise():
+    work = np.array([3.0, 1.0, 2.5, 0.5, 4.0, 1.5])
+    for port_model, ref_model in (
+            (port_core.ShiftedExponential(), ref_core.ShiftedExponential()),
+            (port_core.ShiftedExponential(shift=0.5, rate=4.0),
+             ref_core.ShiftedExponential(shift=0.5, rate=4.0)),
+            (port_core.AdversarialSlow((1, 4), 7.0),
+             ref_core.AdversarialSlow((1, 4), 7.0))):
+        rp, rr = np.random.default_rng(5), np.random.default_rng(5)
+        for _ in range(3):
+            tp, tr = port_model.sample(work, rp), ref_model.sample(work, rr)
+            np.testing.assert_array_equal(tp, tr)
+            np.testing.assert_array_equal(port_core.completion_order(tp),
+                                          ref_core.completion_order(tr))
+            assert port_core.fastest_k(tp, 4) == ref_core.fastest_k(tr, 4)
+            assert port_core.job_time(tp, 4) == ref_core.job_time(tr, 4)
+        assert (port_core.simulate_job(work, 4, port_model,
+                                       np.random.default_rng(1), n_rounds=50)
+                == ref_core.simulate_job(work, 4, ref_model,
+                                         np.random.default_rng(1),
+                                         n_rounds=50))
+    assert (port_core.simulate_job(work, 3, n_rounds=20)
+            == ref_core.simulate_job(work, 3, n_rounds=20))
+
+
+@pytest.mark.parametrize("kind", [None, "mv", "mm"])
+def test_list_schemes_table_text_equal(kind, capsys):
+    import repro.api.__main__ as ref_cli
+    import repro_torch.api.__main__ as port_cli
+
+    assert port_cli.format_scheme_table(kind) == \
+        ref_cli.format_scheme_table(kind)
+    argv = ["--list-schemes"] + ([] if kind is None else ["--kind", kind])
+    assert port_cli.main(argv) == 0
+    port_out = capsys.readouterr().out
+    assert ref_cli.main(argv) == 0
+    assert port_out == capsys.readouterr().out
+    assert port_cli.main([]) == 1

@@ -400,3 +400,84 @@ def test_plan_on_the_card_matches_the_cpu(hopper):
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                cpu.executor.decode(y, done).float().numpy(),
                                rtol=2e-2, atol=2e-2)
+
+
+def smoke_engine(device, coded=None):
+    """The phi3-mini smoke engine (f32) on ``device``, its weights drawn on
+    the CPU from seed 0 so both devices serve the same model."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import CodedConfig
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_smoke_config("phi3-mini-3.8b")
+    params = build_model(cfg, torch.float32, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    model = build_model(cfg, torch.float32, device=device)
+    return ServeEngine(
+        model, {k: v.to(device) for k, v in params.items()}, cfg,
+        batch_size=2, max_len=64,
+        coded=None if coded is None else CodedConfig(**coded))
+
+
+def record_logits(engine) -> list:
+    """Wrap an engine's prefill and decode to keep each step's logits."""
+    seen = []
+
+    def keep(fn):
+        def call(*args):
+            out = fn(*args)
+            seen.append(out[0].cpu())
+            return out
+        return call
+
+    engine._prefill, engine._decode = (keep(engine._prefill),
+                                       keep(engine._decode))
+    return seen
+
+
+def test_smoke_engine_on_the_card_matches_the_cpu(hopper):
+    """Every step's logits of ``TestServeEngine.test_batched_generation``'s
+    case on the card against the same engine on the CPU, f32, and no
+    coded-path kernel launched while serving."""
+    from repro_torch.serve import Request
+
+    engines = {dev: smoke_engine(dev) for dev in ("cpu", hopper)}
+    logits = {dev: record_logits(eng) for dev, eng in engines.items()}
+    before = launch_counts()
+    outs = {dev: eng.run([Request(prompt=[1, 5, 9], max_new=4),
+                          Request(prompt=[1, 7], max_new=4),
+                          Request(prompt=[1, 2, 3, 4], max_new=4)])
+            for dev, eng in engines.items()}
+    assert launch_counts() == before
+    assert len(logits["cpu"]) == len(logits[hopper]) == 8
+    for a, b in zip(logits[hopper], logits["cpu"]):
+        close(a, b)
+    assert [r.output for r in outs[hopper]] == [r.output for r in outs["cpu"]]
+
+
+def test_coded_logits_launch_counts(hopper):
+    """Engine build: one cyclic_encode (the head's encode); each
+    coded_logits: one bcsr_matmul and one decode_matmul; against the CPU
+    engine's coded head within f32 tolerance, per straggler mask."""
+    before = launch_counts()
+    eng = smoke_engine(hopper, dict(enabled=True, n_workers=6, stragglers=2))
+    after = launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        "bcsr_matmul": 0, "cyclic_encode": 1, "decode_matmul": 0}
+    assert eng.coded.backend == "cuda"
+    cpu = smoke_engine("cpu", dict(enabled=True, n_workers=6, stragglers=2,
+                                   backend="cuda"))
+    hidden = t(np.random.default_rng(0).standard_normal((2, 64)))
+    for _ in range(3):
+        done = eng._straggler_mask()
+        np.testing.assert_array_equal(done, cpu._straggler_mask())
+        before = launch_counts()
+        got = eng.coded_logits(hidden.to(hopper), done)
+        after = launch_counts()
+        assert {k: after[k] - before[k] for k in after} == {
+            "bcsr_matmul": 1, "cyclic_encode": 0, "decode_matmul": 1}
+        assert got.dtype == torch.float32 and got.shape == (2, 256)
+        np.testing.assert_allclose(got.cpu().numpy(),
+                                   cpu.coded_logits(hidden, done).numpy(),
+                                   rtol=2e-4, atol=2e-4)

@@ -25,7 +25,11 @@ def test_import_leaves_jax_and_repro_unloaded():
         "import sys\n"
         "import repro_torch, repro_torch.api, repro_torch.core, "
         "repro_torch.runtime, repro_torch.kernels, repro_torch.convert\n"
+        "import repro_torch.api.__main__, repro_torch.cluster.faults, "
+        "repro_torch.configs, repro_torch.models, repro_torch.parallel, "
+        "repro_torch.serve, repro_torch.launch.serve\n"
         "repro_torch.compile_plan\n"
+        "repro_torch.configs.get_config('phi3-mini-3.8b')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)\n"
@@ -36,9 +40,21 @@ def test_import_leaves_jax_and_repro_unloaded():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
-@pytest.mark.parametrize("path", sorted(
-    [p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")]
-    + ["chip_smoke.py"]))
+SCANNED = sorted([p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")]
+                 + ["chip_smoke.py"])
+
+
+def test_scan_covers_every_subpackage():
+    packages = {p.parent.relative_to(PORT).as_posix()
+                for p in PORT.rglob("__init__.py")}
+    assert {"api", "cluster", "configs", "core", "kernels", "launch",
+            "models", "parallel", "runtime", "serve"} <= packages
+    for pkg in packages:
+        assert any(path.startswith(f"src/repro_torch/{pkg}/".replace("/./", "/"))
+                   for path in SCANNED), pkg
+
+
+@pytest.mark.parametrize("path", SCANNED)
 def test_no_jax_or_reference_import_in_source(path):
     src = (ROOT / path).read_text()
     hits = [m.group(0).strip() for m in _FORBIDDEN.finditer(src)]
