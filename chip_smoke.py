@@ -47,10 +47,31 @@ Phases, one JSON line each:
      head`` in f64 under 5 of the engine's own straggler masks (with
      kappa), the launch counts (1 ``cyclic_encode`` at build, none while
      serving, 1 ``bcsr_matmul`` + 1 ``decode_matmul`` per coded call), a
-     ``census`` of one coded call, and the three kernels at this geometry.
+     ``census`` of one coded call, and the three kernels at this geometry;
+  7. cluster -- the edge cluster (``repro_torch.cluster``) with card
+     workers, on the serve phase's model: the engine in cluster mode
+     (``CodedConfig(cluster=True, transport="memory")``, n=6, s=2, 6
+     workers) under 5 explicit engine masks, held against the in-process
+     engine (f32, 2e-5 of max|ref|, bitwise or not) and ``hidden @ head``
+     in f64 (with kappa), 20 rounds for the p50, ``decode_s`` and task
+     bytes; the Fig. 4 matmat over ``to_cluster(transport="memory")``
+     (n=20, k_A=k_B=4, 98% zero tiles) against the in-process ``cuda``
+     matmat and f64; the head over ``to_cluster(transport="pipe")``,
+     ``nvidia-smi``'s compute apps shown beside the children; one racing
+     round (``done=None``) under ``StragglerFaults``; then
+     ``bcsr_matmul`` on one worker task of the head and the fleet's
+     decode, each against its plain version, and a ``census`` of one
+     cluster round (both taken before the mm path; the decode's trace is
+     taken again, whole, after the pipe path and the race).  Launches: k ``bcsr_matmul`` + 1 ``decode_matmul``
+     per engine call, 1 ``cyclic_encode`` + k + 1 per matmat, 1
+     ``decode_matmul`` per pipe call in the parent and k ``bcsr_matmul``
+     in the children (each child reports its own counts over the pipe's
+     control channel, with its pid, its card and the device memory its
+     shard holds), 1 ``cyclic_encode`` at the engine's build.  Every
+     clean round has no death, requeue or suspicion.
 
 Launch counters are set to 0 just before each main path (mv, mm,
-serve) and read just after: every encode must have gone through
+serve, cluster) and read just after: every encode must have gone through
 ``cyclic_encode``, every worker product through ``bcsr_matmul`` (one
 launch per matvec and per matmat) and every decode through
 ``decode_matmul`` (one per matvec, matmat and ``decode``).  Any failure raises and exits non-zero.  The
@@ -80,6 +101,10 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.api import compile_plan  # noqa: E402
+from repro_torch.cluster import StragglerFaults  # noqa: E402
+from repro_torch.cluster.wire import PlanShard  # noqa: E402
+from repro_torch.cluster.worker import CardTask  # noqa: E402
+from repro_torch.configs.base import CodedConfig  # noqa: E402
 from repro_torch.core.coded_matmul import split_block_columns  # noqa: E402
 from repro_torch.core.encoding import mv_encoding_matrix  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
@@ -100,6 +125,8 @@ from repro_torch.kernels.decode_matmul import (  # noqa: E402
 from repro_torch.launch import serve as launcher  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.runtime import encode_blocks, support_tables  # noqa: E402
+from repro_torch.runtime.pack import unpack_coded_blocks  # noqa: E402
+from repro_torch.serve import ServeEngine  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 rate, f32 FFMA rate, and the
 # dense bf16 tensor-core rate, the least time a bf16 x bf16 product needs
@@ -190,28 +217,53 @@ def peak_rate(*operands: torch.Tensor) -> float:
 # of a tight window can fall outside it (on an H100, one launch of 20,
 # in three traces in a row)
 TRACE_MARGIN_S = 0.05
+# the host range that holds the traced calls in a trace, and the small
+# launches that come before it in the same window
+TRACED_RANGE = "chip_smoke.traced"
+PRIMER_LAUNCHES = 20
 
 
-def trace(fn, edges: list | None = None):
+def trace(fn, info: dict | None = None):
     """The device activities of ``fn()`` in a ``torch.profiler`` trace:
-    (name, start us, end us) in start order.  ``edges``, when given,
-    gets the host ops' first start and last end (us) appended."""
+    (name, start us, end us) in start order.  ``info``, when given, gets
+    the host ops' first start and last end (us) in the traced range and
+    the primer's device records (``primer_seen`` of ``primer_launched``).
+
+    The window is primed: ``PRIMER_LAUNCHES`` small launches and a
+    synchronise come before ``fn``, and only the activities that start
+    inside ``fn``'s host range are kept.  Once a process has spawned
+    others, the profiler drops the device records of the first launches
+    of a window, a run of them from its start, library kernels as well
+    as the port's (up to 7 of 20 after the ``pipe`` path on an H100;
+    ``scripts/trace_probe.py``); the primer takes that loss."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         time.sleep(TRACE_MARGIN_S)
-        fn()
+        primer = torch.zeros(1, device="cuda")
+        for _ in range(PRIMER_LAUNCHES - 1):
+            primer.add_(1.0)
         torch.cuda.synchronize()
+        with record_function(TRACED_RANGE):
+            fn()
+            torch.cuda.synchronize()
         time.sleep(TRACE_MARGIN_S)
     events = prof.events()
+    span = next(e.time_range for e in events if e.name == TRACED_RANGE)
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and e.name != TRACED_RANGE]   # not the range's device shadow
     acts = [(e.name, e.time_range.start, e.time_range.end)
-            for e in events if e.device_type == DeviceType.CUDA]
-    if edges is not None:
+            for e in device if e.time_range.start >= span.start]
+    if info is not None:
         host = [e.time_range for e in events
-                if e.device_type == DeviceType.CPU]
-        edges.append((min((r.start for r in host), default=None),
-                      max((r.end for r in host), default=None)))
+                if e.device_type == DeviceType.CPU
+                and e.time_range.start >= span.start]
+        info.update(
+            host_start=min((r.start for r in host), default=None),
+            host_end=max((r.end for r in host), default=None),
+            primer_seen=sum(e.time_range.start < span.start for e in device),
+            primer_launched=PRIMER_LAUNCHES)
     return sorted(acts, key=lambda a: a[1])
 
 
@@ -220,23 +272,28 @@ def trace(fn, edges: list | None = None):
 TRACE_ATTEMPTS = 5
 
 
-def trace_whole(what: str, fn, ran) -> tuple[list, int]:
+def trace_whole(what: str, fn, ran, info: dict | None = None
+                ) -> tuple[list, int]:
     """``trace(fn)`` and the attempt it took, retaken while ``ran(acts)``
     (the port kernels the trace shows, by name) differs from the launches
-    ``fn`` makes on the launch counters."""
+    ``fn`` makes on the launch counters; ``info`` gets the whole trace's
+    ``trace`` info."""
     seen = []
     for attempt in range(1, TRACE_ATTEMPTS + 1):
         before = launch_counts()
-        edges: list = []
-        acts = trace(fn, edges)
+        got: dict = {}
+        acts = trace(fn, got)
         launched = {k: v - before[k] for k, v in launch_counts().items()}
         if ran(acts) == launched:
+            if info is not None:
+                info.update(got)
             return acts, attempt
         # where the device activities lie against the host ops (us): the
         # device starts after the host issues and ends before it syncs
-        host_start, host_end = edges[0]
+        host_start, host_end = got["host_start"], got["host_end"]
         seen.append({
             "device_activities": len(acts),
+            "primer_seen": got["primer_seen"],
             "first_device_after_host_us": (
                 None if not acts or host_start is None
                 else acts[0][1] - host_start),
@@ -266,12 +323,13 @@ def traced_ran(acts) -> dict:
     return {name: names.count(name) for name in TRACE_NAMES}
 
 
-def device_ms(name: str, fn, reps: int = TRACED_CALLS) -> tuple[float, int]:
+def device_ms(name: str, fn, reps: int = TRACED_CALLS,
+              info: dict | None = None) -> tuple[float, int]:
     """Mean duration of kernel ``name``'s launches in a trace of ``reps``
     calls of ``fn`` (device time alone, without the host's issue rate),
     and the traces it took."""
     acts, attempts = trace_whole(name, lambda: [fn() for _ in range(reps)],
-                                 traced_ran)
+                                 traced_ran, info)
     acts = [a for a in acts if kernel_of(a[0]) == name]
     if len(acts) != reps:
         raise AssertionError(f"{name}: {len(acts)} traced launches for "
@@ -801,7 +859,8 @@ def census(label: str, fn, p50_ms: float, want: dict) -> dict:
     untraced), and the port kernels it ran.  The decode must come last."""
     fn()
     torch.cuda.synchronize()
-    acts, attempts = trace_whole(label, fn, traced_ran)
+    info: dict = {}
+    acts, attempts = trace_whole(label, fn, traced_ran, info)
     names = [kernel_of(a[0]) or a[0].removeprefix("void ").split("<")[0]
              for a in acts]
     busy = busy_us(acts) / 1e3
@@ -809,7 +868,8 @@ def census(label: str, fn, p50_ms: float, want: dict) -> dict:
            "device_busy_ms": busy,
            "device_span_ms": (acts[-1][2] - acts[0][1]) / 1e3 if acts else 0,
            "p50_ms": p50_ms, "busy_share": busy / p50_ms,
-           "idle_share": 1.0 - busy / p50_ms, "traces": attempts}
+           "idle_share": 1.0 - busy / p50_ms, "traces": attempts,
+           "primer_seen": info["primer_seen"]}
     emit("census", **row)
     ran = {name: names.count(name) for name in want}
     if ran != want:
@@ -1090,6 +1150,326 @@ def kernels_serve(serve: dict, reps: int) -> list[dict]:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the edge cluster on the card (repro_torch.cluster)
+# ---------------------------------------------------------------------------
+
+
+def compute_apps() -> list[list[str]]:
+    """``nvidia-smi``'s compute apps: [pid, used memory] per process."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60).stdout
+    return [[f.strip() for f in line.split(",")]
+            for line in out.splitlines() if line.strip()]
+
+
+def clean(where: str, reports) -> None:
+    """Every round of a clean run: no death, no requeue, no suspicion (a
+    worker whose kernel fails dies, and the fleet would route around it)."""
+    bad = [(r.round, r.deaths, r.requeues, r.suspected) for r in reports
+           if r.deaths or r.requeues or r.suspected]
+    if bad:
+        raise AssertionError(f"{where}: (round, deaths, requeues, "
+                             f"suspected) {bad}")
+
+
+def card_workers(where: str, cl) -> None:
+    if cl.fleet.backend != "cuda" or cl.fleet.device.type != "cuda":
+        raise AssertionError(f"{where}: workers compute with "
+                             f"{cl.fleet.backend} on {cl.fleet.device}")
+
+
+def hold_parity(where: str, got, want, dtype, plan, done, ref, t, stored
+                ) -> dict:
+    """A cluster result against the in-process one (f32, 2e-5 of
+    max|want|) and against f64 truth (``check_decoded``)."""
+    row = check_decoded(where, dtype, plan, done, got, ref, t, stored)
+    row["rel_err_vs_in_process"] = rel_err(got, want.double())
+    row["bitwise_in_process"] = bool(torch.equal(got, want))
+    if not row["rel_err_vs_in_process"] <= TOL[torch.float32]:
+        raise AssertionError(f"{where}: {row}")
+    return row
+
+
+def phase_cluster(seed: int, dev, gen, rng, serve: dict, t_dim: int = 8192,
+                  r_dim: int = 4096, w_dim: int = 4096,
+                  kernel_reps: int = 50) -> tuple[dict, list]:
+    """The serve engine's cluster mode on the serve phase's model, the
+    Fig. 4 matmat over ``to_cluster``, and the head over the ``pipe``
+    transport, all with card workers, each path's launches counted from
+    0; between the first two, the kernel rows at the cluster's shapes and
+    the ``census`` of one cluster round; last, a racing round and the
+    decode row's trace taken again, which must be whole after the pipe
+    children.  -> (the path's launch counts, summed; the kernel rows)."""
+    engine0, hidden = serve["engine"], serve["hidden"]
+    cfg, model, params = engine0.cfg, engine0.model, engine0.params
+    head = params["embed"].T if cfg.tie_embeddings else params["head"]
+    ref = hidden.double() @ head.double()
+    d = cfg.d_model
+    # the cluster engine's own masks (its fault model and seed), given
+    # explicitly to both engines; the in-process results are taken first
+    faults = StragglerFaults(rng=np.random.default_rng(0))
+    masks = [faults.mask(6, 2) for _ in range(5)]
+    wants = [engine0.coded_logits(hidden, m) for m in masks]
+    A = block_sparse(gen, dev, t_dim, r_dim, 0.98)
+    B = block_sparse(gen, dev, t_dim, w_dim, 0.98)
+    ref_mm = A.double().T @ B.double()
+    n, ka, kb = 20, 4, 4
+    plan_mm = compile_plan(A, scheme="proposed", n=n, k_A=ka, k_B=kb,
+                           backend="cuda", seed=seed)
+    mm_masks = straggler_masks(rng, n, n - ka * kb, 2)
+    mm_wants = [plan_mm.matmat(B, m) for m in mm_masks]
+    torch.cuda.synchronize()
+
+    # -- the engine in cluster mode: counts from 0 -------------------------
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    engine = ServeEngine(model, params, cfg, batch_size=engine0.batch_size,
+                         max_len=engine0.max_len, coded=CodedConfig(
+                             enabled=True, n_workers=6, stragglers=2,
+                             scheme="proposed", cluster=True,
+                             transport="memory"))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    expect_counts("cluster engine build", launch_counts(), bcsr_matmul=0,
+                  cyclic_encode=1, decode_matmul=0)
+    plan, cl = engine.coded, engine.coded_cluster
+    card_workers("engine cluster", cl)
+    dtype = plan.executor.coded.dtype
+    k = plan.k
+
+    def stored(rows):
+        return mv_stored_decode(plan, rows, hidden, cfg.vocab)
+
+    patterns = []
+    for done, want in zip(masks, wants):
+        before = launch_counts()
+        got = engine.coded_logits(hidden, done)
+        torch.cuda.synchronize()
+        expect_counts("one cluster coded_logits", launched_since(before),
+                      bcsr_matmul=k, cyclic_encode=0, decode_matmul=1)
+        if got.shape != (2, cfg.vocab) or got.device.type != dev.type:
+            raise AssertionError(f"cluster coded_logits: {got.device} "
+                                 f"{tuple(got.shape)}")
+        patterns.append(hold_parity("cluster", got, want, dtype, plan, done,
+                                    ref, d, stored))
+    reps = 20
+    p50 = host_p50_ms(lambda: engine.coded_logits(hidden, masks[0]), reps)
+    reports = list(cl.reports)
+    clean("engine cluster", reports)
+    last = reports[-reps:]
+    emit("cluster", case="engine", arch=cfg.name, transport="memory",
+         scheme=plan.scheme.name, n=plan.n, s=plan.s, k=k,
+         head_dtype=str(dtype).removeprefix("torch."),
+         workers=cl.n_workers, worker_backend=cl.fleet.backend,
+         build_s=build_s, patterns=patterns, round_p50_ms=p50,
+         rounds=reps, decode_s_p50=float(np.median(
+             [r.decode_s for r in last])),
+         wall_s_p50=float(np.median([r.wall_s for r in last])),
+         bytes_tasks_per_round=last[-1].bytes_tasks,
+         bytes_results_per_round=last[-1].bytes_results,
+         bytes_shards=cl.bytes_shards)
+    calls = len(masks) + reps
+    engine_counts = launch_counts()
+    expect_counts("cluster engine", engine_counts, bcsr_matmul=calls * k,
+                  cyclic_encode=1, decode_matmul=calls)
+
+    # -- the kernels at the cluster's shapes, one cluster round traced -----
+    rows, decode_call = kernels_cluster(plan, hidden, masks[0],
+                                        cl.handle.shard_blobs[0], kernel_reps)
+    census("cluster coded_logits",
+           lambda: engine.coded_logits(hidden, masks[0]), p50,
+           {"bcsr_matmul": k, "cyclic_encode": 0, "decode_matmul": 1})
+    engine.close()
+
+    # -- Fig. 4 matmat over to_cluster: counts from 0 ----------------------
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    cl_mm = plan_mm.to_cluster(transport="memory")
+    start_mm_s = time.perf_counter() - t0
+    card_workers("mm cluster", cl_mm)
+    mm_checks, mm_wall = [], []
+    for done, want in zip(mm_masks, mm_wants):
+        before = launch_counts()
+        t0 = time.perf_counter()
+        got = cl_mm.matmat(B, done)
+        torch.cuda.synchronize()
+        mm_wall.append((time.perf_counter() - t0) * 1e3)
+        expect_counts("one cluster matmat", launched_since(before),
+                      bcsr_matmul=ka * kb, cyclic_encode=1, decode_matmul=1)
+        if got.shape != (r_dim, w_dim) or not torch.isfinite(got).all():
+            raise AssertionError(f"cluster mm: bad output {got.shape}")
+        mm_checks.append(hold_parity("cluster mm", got, want, torch.float32,
+                                     plan_mm, done, ref_mm, t_dim, None))
+    mm_reports = list(cl_mm.reports)
+    clean("mm cluster", mm_reports)
+    cl_mm.shutdown()
+    emit("cluster", case="mm", transport="memory", n=n, k_A=ka, k_B=kb,
+         s=plan_mm.s, shape_a=[t_dim, r_dim], shape_b=[t_dim, w_dim],
+         tile_zeros=0.98, start_s=start_mm_s, patterns=mm_checks,
+         matmat_wall_ms=mm_wall,
+         decode_s=[r.decode_s for r in mm_reports],
+         bytes_tasks_per_round=mm_reports[-1].bytes_tasks,
+         bytes_tasks_dense_per_round=mm_reports[-1].bytes_tasks_dense)
+    mm_counts = launch_counts()
+    expect_counts("cluster mm", mm_counts, bcsr_matmul=len(mm_masks) * ka * kb,
+                  cyclic_encode=len(mm_masks), decode_matmul=len(mm_masks))
+
+    # -- the head over the pipe transport: counts from 0 -------------------
+    # (card workers in children: their bcsr_matmul launches count there,
+    # and each child reports its counts over the pipe's control channel)
+    apps_before = compute_apps()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    cl_pipe = plan.to_cluster(transport="pipe")
+    try:
+        start_pipe_s = time.perf_counter() - t0
+        card_workers("pipe cluster", cl_pipe)
+        transport = cl_pipe.transport
+        pids = {w: p.pid for w, p in transport._procs.items()}
+        prev = first = transport.reports()
+        pipe_checks, child_launches = [], []
+        for done, want in zip(masks, wants):
+            before = launch_counts()
+            got = cl_pipe.matvec(hidden, done)
+            torch.cuda.synchronize()
+            expect_counts("one pipe matvec (parent)", launched_since(before),
+                          bcsr_matmul=0, cyclic_encode=0, decode_matmul=1)
+            now = transport.reports()
+            per_child = {w: {name: c - prev[w]["launches"][name]
+                             for name, c in now[w]["launches"].items()}
+                         for w in now}
+            # one bcsr_matmul in each child that returned a task, k in all
+            served = cl_pipe.last_report.completed_per_worker
+            want_child = {w: {"bcsr_matmul": served.get(w, 0),
+                              "cyclic_encode": 0, "decode_matmul": 0}
+                          for w in now}
+            if per_child != want_child or sum(
+                    c["bcsr_matmul"] for c in per_child.values()) != k:
+                raise AssertionError(f"one pipe matvec: children launched "
+                                     f"{per_child}, expected {want_child}")
+            child_launches.append(sum(c["bcsr_matmul"]
+                                      for c in per_child.values()))
+            prev = now
+            pipe_checks.append(hold_parity("pipe cluster", got, want, dtype,
+                                           plan, done, ref, d, stored))
+        clean("pipe cluster", cl_pipe.reports)
+        apps = compute_apps()
+    finally:
+        cl_pipe.shutdown()
+    # each child, in its own words: its pid, the card, the shard tiles it
+    # holds there and the launches it made from its start
+    card = torch.cuda.get_device_name(0)
+    children = {w: {"pid": r["pid"], "device": r["device"],
+                    "device_name": r["device_name"],
+                    "memory_allocated": r["memory_allocated"],
+                    "launches": r["launches"]} for w, r in prev.items()}
+    bad = [w for w, r in prev.items()
+           if r["pid"] != pids[w] or r["backend"] != "cuda"
+           or not r["device"].startswith("cuda") or r["device_name"] != card
+           or r["memory_allocated"] <= 0
+           or first[w]["launches"]["bcsr_matmul"] != 0]
+    if sorted(prev) != sorted(pids) or bad:
+        raise AssertionError(f"pipe children {sorted(pids)} (bad: {bad}) "
+                             f"do not compute on the card: {children}")
+    app_pids = [a[0] for a in apps]
+    by_pid = all(str(p) in app_pids for p in pids.values())
+    # a sandbox's pid namespace can hide the children's pids from
+    # nvidia-smi (it then shows another pid); the children's own reports
+    # above are the proof, the listing is shown beside them
+    emit("cluster", case="pipe", transport="pipe", workers=len(pids),
+         start_s=start_pipe_s, startup=transport.startup,
+         child_pids=sorted(pids.values()), children=children,
+         child_bcsr_per_matvec=child_launches,
+         compute_apps_before=apps_before, compute_apps=apps,
+         children_listed_by_pid=by_pid,
+         compute_apps_added=len(apps) - len(apps_before),
+         patterns=pipe_checks,
+         round_wall_s=[r.wall_s for r in cl_pipe.reports])
+    pipe_counts = launch_counts()
+    expect_counts("cluster pipe (parent)", pipe_counts, bcsr_matmul=0,
+                  cyclic_encode=0, decode_matmul=len(masks))
+    # the children's launches, from their own counters (0 at their spawn,
+    # after this window's reset)
+    pipe_counts = {name: c + sum(r["launches"][name] for r in prev.values())
+                   for name, c in pipe_counts.items()}
+    expect_counts("cluster pipe", pipe_counts, bcsr_matmul=len(masks) * k,
+                  cyclic_encode=0, decode_matmul=len(masks))
+    counts = {name: engine_counts[name] + mm_counts[name] + pipe_counts[name]
+              for name in engine_counts}
+    emit("cluster", launches=counts, engine=engine_counts, mm=mm_counts,
+         pipe=pipe_counts, engine_calls=calls, matmat_calls=len(mm_masks),
+         pipe_calls=len(masks))
+
+    # -- racing: decode from the fastest k under latency faults -------------
+    before = launch_counts()
+    with plan.to_cluster(transport="memory", faults=StragglerFaults(
+            time_scale=0.05, seed=seed)) as race:
+        got = race.matvec(hidden)
+        torch.cuda.synchronize()
+        rep = race.last_report
+    raced = launched_since(before)
+    if rep.n_done != k or raced["decode_matmul"] != 1 or not (
+            k <= raced["bcsr_matmul"] <= plan.n):
+        raise AssertionError(f"racing: {rep.as_dict()} launches {raced}")
+    clean("racing", [rep])
+    race_row = check_decoded("racing", dtype, plan, rep.pattern, got, ref, d,
+                             stored)
+    emit("cluster", case="racing", time_scale=0.05, n_done=rep.n_done,
+         rows=rep.rows.tolist(), wall_s=rep.wall_s, decode_s=rep.decode_s,
+         launches=raced, check=race_row)
+
+    # -- the decode row's trace again, after the pipe children and the race:
+    # one earlier run lost 5 of 20 launches from this trace in this state
+    info: dict = {}
+    retrace_ms, takes = device_ms("decode_matmul", decode_call, info=info)
+    emit("cluster", case="retrace", kernel="decode_matmul",
+         calls=TRACED_CALLS, device_ms=retrace_ms, traces=takes,
+         device_ms_before=rows[-1]["device_ms"],
+         primer_seen=info["primer_seen"],
+         primer_launched=info["primer_launched"])
+    return counts, rows
+
+
+def kernels_cluster(plan, hidden, done, blob: bytes, reps: int
+                    ) -> tuple[list[dict], object]:
+    """bcsr_matmul on one card worker's task of the head (its re-tiled
+    f32 form, from the shard frame ``blob``) and the fleet's decode of
+    the head, each against its plain version.  -> (the rows, a call of
+    that decode's launch, for a later trace)."""
+    dev = hidden.device
+    shard = PlanShard.decode(blob)
+    task = CardTask(shard, shard.tasks[0], dev)
+    packed = task.packed
+    b = torch.zeros((shard.t_pad, hidden.shape[0]), device=dev)
+    b[: shard.t] = hidden.T
+    dense = unpack_coded_blocks(packed)[0].T.contiguous()     # (c, t)
+    rows = [check_kernel(
+        "bcsr_matmul", "cluster",
+        lambda: bcsr_matmul(packed.a_data, packed.a_idx, b, mb=packed.mb,
+                            counts=packed.counts),
+        lambda: bcsr_matmul_plain(packed.a_data, packed.a_idx, b,
+                                  mb=packed.mb, counts=packed.counts),
+        lambda: torch.matmul(dense, b),
+        dtype=torch.float32, nbytes=bcsr_bytes(packed, [0], b,
+                                               packed.c_pad),
+        flops=bcsr_flops(packed, [0], b.shape[1]),
+        flops_per_s=F32_FLOPS_PER_S, reps=reps, plain_reps=3)]
+    # the fleet's decode: the k live (c_pad, b) results of 8x8 shards
+    ex = plan.executor
+    dplan = ex.cache.plan(done)
+    y = bcsr_matmul(ex.packed.a_data, ex.packed.a_idx, hidden.T.contiguous(),
+                    dplan.rows_dev, mb=ex.packed.mb, counts=ex.packed.counts)
+    y = y.view(ex.k, ex.packed.c_pad, -1)[:, : shard.c_pad].contiguous()
+    kw = {"c": ex.packed.c, "r": ex.r}
+    rows.append(check_decode(dplan.hinv_dev, y, "mv", reps, case="cluster",
+                             **kw))
+    layout = prepare_decode(dplan.hinv_dev, y, "mv", **kw)
+    return rows, lambda: launch_decode(layout, dplan.hinv_dev, y, None)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1138,6 +1518,9 @@ def main(argv=None) -> int:
            serve["p50"], {"bcsr_matmul": 1, "cyclic_encode": 0,
                           "decode_matmul": 1})
     serve_counts = serve["counts"]
+    cluster_counts, cluster_rows = phase_cluster(args.seed, dev, gen, rng,
+                                                 serve)
+    rows += cluster_rows
     del serve
     torch.cuda.synchronize()
 
@@ -1160,7 +1543,7 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": (mv_counts[name] + mm_counts[name]
-                         + serve_counts[name]),
+                         + serve_counts[name] + cluster_counts[name]),
             "max_abs_err": main_row["max_abs_err"], "ms": main_row["ms"],
             "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],

@@ -219,6 +219,40 @@ class CodedPlan:
                                                            a.dtype)),
             *payloads)
 
+    # -- distribution ------------------------------------------------------
+
+    def to_cluster(self, n_workers: int | None = None, *,
+                   transport: str | None = None, faults=None,
+                   deadline: float | None = None, **kw):
+        """Serve this plan from real workers (``repro_torch.cluster``).
+
+        Returns a ``ClusterPlan`` with the same ``matvec / matmat /
+        aggregate`` signatures; per-worker ``PlanShard``s are shipped
+        once at construction and every call dispatches tasks, collects
+        results asynchronously and decodes at the fastest-k task set.
+        The workers follow the plan: a ``cuda`` plan is served by card
+        workers (one ``bcsr_matmul`` per task, one ``decode_matmul`` per
+        round, on the plan's device), any other plan by host workers.
+        ``transport`` picks the byte carrier (``memory`` | ``pipe``;
+        default: the ``REPRO_CLUSTER_TRANSPORT`` env var, then
+        ``memory``).  ``n_workers`` < n hosts several
+        virtual workers per physical one (the partial-straggler
+        setting).  Extra keywords (``heartbeat_s``, ``suspect_after``)
+        tune the liveness protocol.  Shut the cluster down (``with``
+        block or ``.shutdown()``) when done -- the transport owns real
+        processes and threads.
+
+        A ``ClusterPlan`` is a private single-plan session (one fleet,
+        ``max_inflight=1``).  To share one worker set across several
+        plans -- and get async futures, pipelined in-flight rounds and
+        matvec microbatching -- build a ``repro_torch.api.fleet.
+        CodedFleet`` and ``fleet.attach(plan)`` instead.
+        """
+        from ..cluster import ClusterPlan  # noqa: PLC0415 - optional layer
+
+        return ClusterPlan(self, n_workers, transport=transport,
+                           faults=faults, deadline=deadline, **kw)
+
     # -- online re-tuning --------------------------------------------------
 
     def retune(self, A=None, *, crossover: float | None = None) -> str:

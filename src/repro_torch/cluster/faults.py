@@ -29,9 +29,9 @@ heartbeat-timeout path can catch.  All injectors round-trip through
 and socket workers can reconstruct them on the far side of a pipe
 without pickling code objects.
 
-In the port the serve engine's per-step straggler mask is the caller
-so far; the transports that wrap ``faulty`` come with the cluster
-layer.
+In the port both callers exist: the serve engine samples its per-step
+straggler mask here, and the ``memory`` and ``pipe`` transports wrap
+their workers' serve path in ``faulty``.
 """
 
 from __future__ import annotations

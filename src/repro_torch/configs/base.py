@@ -71,22 +71,23 @@ class CodedConfig:
     # (repro_torch.api.backends); the REPRO_CODED_BACKEND env var overrides
     # everything, including auto.
     backend: str | None = None
-    # The cluster, fleet and router modes below are the JAX package's;
-    # the port's ServeEngine raises NotImplementedError for each until
-    # the cluster layer is ported.
-    # serve the coded matmuls from real workers (repro.cluster): the
-    # plan is sharded once at engine build and every step dispatches
-    # tasks + decodes from the fastest-k results.  cluster_workers <
-    # n_workers hosts several virtual workers per physical one
-    # (partial-straggler setting); None = one host per virtual worker.
+    # The port's ServeEngine serves the cluster and fleet modes below;
+    # the router mode raises NotImplementedError until serve/router.py
+    # is ported (ROADMAP.md §1 item 11).
+    # serve the coded matmuls from real workers (repro_torch.cluster):
+    # the plan is sharded once at engine build and every step dispatches
+    # tasks + decodes from the fastest-k results; a card plan's workers
+    # compute on the card.  cluster_workers < n_workers hosts several
+    # virtual workers per physical one (partial-straggler setting);
+    # None = one host per virtual worker.
     cluster: bool = False
     cluster_workers: int | None = None
-    # cluster transport (repro.cluster.transport): "memory" (in-process
-    # threads), "pipe" (spawned subprocesses), "tcp" (localhost
-    # sockets).  None = the REPRO_CLUSTER_TRANSPORT env var, falling
-    # back to "memory".
+    # cluster transport (repro_torch.cluster.transport): "memory"
+    # (in-process threads), "pipe" (spawned subprocesses); the JAX
+    # package's "tcp" and "shm" are not ported yet.  None = the
+    # REPRO_CLUSTER_TRANSPORT env var, falling back to "memory".
     transport: str | None = None
-    # shared fleet session (repro.api.fleet.CodedFleet): when set, the
+    # shared fleet session (repro_torch.api.fleet.CodedFleet): when set, the
     # engine ATTACHES its coded-head plan to this externally-owned
     # fleet instead of spinning up a private cluster -- the LM head,
     # CodedMoE experts and gradient aggregator then serve off the same

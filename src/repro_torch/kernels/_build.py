@@ -13,7 +13,11 @@ queue work and return at once, so releasing the lock would only add
 host time to every launch.
 
 Nothing here runs at import; ``library()`` builds on its first call and
-raises, with ``nvcc``'s stderr, when the build fails.
+raises, with ``nvcc``'s stderr, when the build fails.  Cluster workers
+are threads that launch kernels, so the first call holds a lock (one
+build, one binding, whichever thread comes first), and the wrappers
+count their launches through ``count_launch``, exact under concurrent
+launches.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -51,6 +56,8 @@ _SIGNATURES = {
 }
 
 _lib: ctypes.PyDLL | None = None
+_lib_lock = threading.Lock()
+_count_lock = threading.Lock()
 # how the library was obtained: {"seconds": build time, "cached": bool}
 build_info: dict = {}
 
@@ -107,9 +114,15 @@ def _compile(target: Path) -> None:
 
 def library() -> ctypes.PyDLL:
     """The loaded kernel library, built from ``csrc/`` if needed."""
+    lib = _lib
+    if lib is not None:
+        return lib
+    with _lib_lock:
+        return _lib if _lib is not None else _load()
+
+
+def _load() -> ctypes.PyDLL:
     global _lib
-    if _lib is not None:
-        return _lib
     target = BUILD_DIR / f"librepro_torch_{_digest()}.so"
     t0 = time.perf_counter()
     cached = target.exists()
@@ -124,6 +137,13 @@ def library() -> ctypes.PyDLL:
                       path=str(target))
     _lib = lib
     return lib
+
+
+def count_launch(fn) -> None:
+    """Add one to ``fn.launches`` (a wrapper's launch counter); exact
+    when several threads launch at once."""
+    with _count_lock:
+        fn.launches += 1
 
 
 def check(err: int, name: str) -> None:

@@ -145,7 +145,7 @@ def bcsr_matmul(a_data: torch.Tensor, a_idx: torch.Tensor, b: torch.Tensor,
         n_out, mb, n_workers, J, K, N, dev.index,
         _build.stream_ptr(dev))
     _build.check(err, "bcsr_matmul")
-    bcsr_matmul.launches += 1
+    _build.count_launch(bcsr_matmul)
     return out
 
 

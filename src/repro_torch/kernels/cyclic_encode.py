@@ -105,7 +105,7 @@ def cyclic_encode(blocks: torch.Tensor, sup: torch.Tensor,
         sup.data_ptr(), coef.data_ptr(), out.data_ptr(), k, t, c, n, w,
         elems, dev.index, _build.stream_ptr(dev))
     _build.check(err, "cyclic_encode")
-    cyclic_encode.launches += 1
+    _build.count_launch(cyclic_encode)
     return out
 
 

@@ -165,7 +165,7 @@ def launch_decode(layout: DecodeLayout, hinv: torch.Tensor, y: torch.Tensor,
         layout.address, _build.raw_stream(layout.device))
     if err:
         _build.check(err, "decode_matmul")
-    decode_matmul.launches += 1
+    _build.count_launch(decode_matmul)
     return out
 
 

@@ -19,11 +19,16 @@ Straggler sampling routes through ``repro_torch.cluster.faults`` (pass
 share the engine's one ``np.random.Generator``, drawn in the
 reference's order, so a seed gives the reference's masks bitwise.
 
-The JAX package's cluster, fleet and router modes (``CodedConfig.
-cluster`` / ``fleet`` / ``router``) need the cluster layer, which the
-port has not yet: they raise ``NotImplementedError`` instead of serving
-in-process.  Prefill and decode run eagerly under
-``torch.inference_mode()`` where the reference jits them.
+``CodedConfig.cluster`` serves the head from a private cluster of real
+workers (``CodedPlan.to_cluster``: a card plan's workers run one
+``bcsr_matmul`` per task and the round one ``decode_matmul``), and
+``CodedConfig.fleet`` attaches it to an externally-owned
+``CodedFleet``; in both the mask picks which workers' task rows a call
+may use (parity mode) and ``done=None`` races them.  The JAX package's
+router mode (``CodedConfig.router``) raises ``NotImplementedError``
+until ``serve/router.py`` is ported (ROADMAP.md §1 item 11).  Prefill
+and decode run eagerly under ``torch.inference_mode()`` where the
+reference jits them.
 """
 
 from __future__ import annotations
@@ -48,16 +53,6 @@ class Request:
     output: list[int] = field(default_factory=list)
 
 
-def _unported_mode(coded: CodedConfig) -> str | None:
-    if coded.router is not None:
-        return "router (serve/router.py, ROADMAP.md §1 item 11)"
-    if coded.fleet is not None:
-        return "fleet (api/fleet.py over the cluster, ROADMAP.md §1 items 9-10)"
-    if coded.cluster:
-        return "cluster (cluster/*, ROADMAP.md §1 items 9-10)"
-    return None
-
-
 class ServeEngine:
     def __init__(self, model, params, cfg: ModelConfig, batch_size: int = 8,
                  max_len: int = 512, coded: CodedConfig | None = None,
@@ -79,6 +74,8 @@ class ServeEngine:
         self.faults = faults if faults is not None \
             else StragglerFaults(rng=self.rng)
         self.coded = None
+        self.coded_cluster = None
+        self._owns_cluster = True
         if coded is not None and coded.enabled:
             if not scheme_info(coded.scheme, "mv").straggler_resilient:
                 # the engine samples a fresh random straggler set per
@@ -88,10 +85,10 @@ class ServeEngine:
                     f"scheme {coded.scheme!r} is not resilient to "
                     f"arbitrary straggler patterns; pick one of "
                     f"{scheme_names('mv', resilient_only=True)}")
-            mode = _unported_mode(coded)
-            if mode is not None:
+            if coded.router is not None:
                 raise NotImplementedError(
-                    f"the coded head's {mode} mode is not ported yet")
+                    "the coded head's router mode is not ported yet "
+                    "(serve/router.py, ROADMAP.md §1 item 11)")
             head = (params["embed"].T if cfg.tie_embeddings
                     else params["head"])
             self.coded = compile_plan(
@@ -99,6 +96,15 @@ class ServeEngine:
                 s=coded.stragglers, seed=coded.seed,
                 backend=coded.backend or "auto", device=model.device)
             self.s = coded.stragglers
+            if coded.fleet is not None:
+                # shared session: attach to the externally-owned fleet
+                # (workers co-host other consumers' plans); close()
+                # detaches without tearing the fleet down
+                self.coded_cluster = coded.fleet.attach(self.coded)
+                self._owns_cluster = False
+            elif coded.cluster:
+                self.coded_cluster = self.coded.to_cluster(
+                    coded.cluster_workers, transport=coded.transport)
         self._prefill = lambda toks: model.prefill(toks, max_len=self.max_len)
         self._decode = model.decode_step
 
@@ -154,16 +160,34 @@ class ServeEngine:
 
     def coded_logits(self, hidden, done=None) -> torch.Tensor:
         """Compute logits through the coded LM head (hidden (B, d)) under
-        ``done``, or a fresh straggler mask when None."""
+        ``done``, or a fresh straggler mask when None.
+
+        In cluster and fleet mode the matvec is actually dispatched: the
+        mask picks which workers' task rows this step may use, and the
+        decode runs from their real, asynchronously-collected results.
+        """
         if self.coded is None:
             raise ValueError("engine built without coded config")
         hidden = as_tensor(hidden, self.coded.device)
         mask = done if done is not None else self._straggler_mask()
-        return self.coded.matvec(hidden, mask).to(hidden.dtype)
+        head = self.coded_cluster if self.coded_cluster is not None \
+            else self.coded
+        return head.matvec(hidden, mask).to(hidden.dtype)
 
     def close(self) -> None:
-        """Release what the engine holds: nothing outside the process yet
-        (the cluster modes, which own workers, are not ported)."""
+        """Release cluster resources (no-op outside cluster mode).
+
+        A private cluster is shut down for real: worker threads joined,
+        worker processes reaped.  A plan attached to a shared
+        ``CodedConfig.fleet`` is only detached: the fleet and its workers
+        keep serving the other consumers, and its owner closes it.
+        """
+        if self.coded_cluster is not None:
+            if self._owns_cluster:
+                self.coded_cluster.shutdown()
+            else:
+                self.coded_cluster.detach()
+            self.coded_cluster = None
 
     def __enter__(self) -> "ServeEngine":
         return self

@@ -481,3 +481,74 @@ def test_coded_logits_launch_counts(hopper):
         np.testing.assert_allclose(got.cpu().numpy(),
                                    cpu.coded_logits(hidden, done).numpy(),
                                    rtol=2e-4, atol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# The cluster on the card: card workers and their decode
+# ---------------------------------------------------------------------------
+
+
+def test_card_worker_matches_its_plain_version(hopper):
+    """A card worker's task (the BSR re-tiled to 32x32 on the card, one
+    ``bcsr_matmul``) against the same worker on the CPU (the plain
+    version) and the host scipy path, dense and support-restricted
+    operands, f32."""
+    from repro_torch.cluster import shard_plan
+    from repro_torch.cluster.wire import Task
+    from repro_torch.cluster.worker import ShardRuntime
+
+    rng = np.random.default_rng(11)
+    A = block_sparse(rng, 256, 200, 8, 8, 0.3)
+    plan = compile_plan(torch.as_tensor(A), scheme="proposed", n=6, s=2,
+                        backend="packed", device="cpu")
+    card = ShardRuntime(hopper, "cuda")
+    plain = ShardRuntime("cpu", "cuda")
+    host = ShardRuntime()
+    for shard in shard_plan(plan, 3, plan_id=1):
+        for rt in (card, plain, host):
+            rt.load(shard)
+        for j, row in enumerate(shard.task_rows):
+            b = rng.standard_normal((shard.t_pad, 3)).astype(np.float32)
+            kb = np.asarray(shard.supports[j][:3], np.int32)
+            bx = b.reshape(-1, shard.bk, 3)[kb].reshape(-1, 3)
+            for payload in ({"b": b}, {"bx": bx, "bi": kb}):
+                task = Task(round=1, op="matvec", task_row=row, plan=1,
+                            payload=payload)
+                before = launch_counts()
+                y = card.run(task)[0]["y"]
+                after = launch_counts()
+                assert after["bcsr_matmul"] - before["bcsr_matmul"] == 1
+                assert isinstance(y, np.ndarray) and y.shape == (
+                    shard.c_pad, 3)
+                np.testing.assert_allclose(y, plain.run(task)[0]["y"], **TOL)
+                np.testing.assert_allclose(y, host.run(task)[0]["y"], **TOL)
+
+
+def test_memory_cluster_matvec_on_the_card(hopper):
+    """A card plan served by card workers over the memory transport: per
+    parity-mode matvec exactly k ``bcsr_matmul`` launches and one
+    ``decode_matmul``, no encode; the result on the card, within f32
+    tolerance of the in-process plan; no death, no requeue."""
+    rng = np.random.default_rng(12)
+    A = torch.as_tensor(block_sparse(rng, 512, 288, 32, 32, 0.5))
+    x = torch.as_tensor(rng.standard_normal((2, 512)).astype(np.float32))
+    plan = compile_plan(A.to(hopper), scheme="proposed", n=6, s=2)
+    assert plan.backend == "cuda"
+    with plan.to_cluster(transport="memory") as cl:
+        assert (cl.fleet.backend, cl.fleet.device.type) == ("cuda", "cuda")
+        for i in range(6):
+            done = np.ones(6, bool)
+            done[[i, (i + 3) % 6]] = False
+            before = launch_counts()
+            got = cl.matvec(x, done)
+            torch.cuda.synchronize()
+            after = launch_counts()
+            assert {k: after[k] - before[k] for k in after} == {
+                "bcsr_matmul": plan.k, "cyclic_encode": 0,
+                "decode_matmul": 1}
+            rep = cl.last_report
+            assert (rep.deaths, rep.requeues) == (0, 0)
+            assert got.device.type == "cuda" and got.shape == (2, 288)
+            close(got, plan.matvec(x.to(hopper), done))
+        np.testing.assert_allclose(cl.matvec(x).cpu().numpy(),
+                                   (x @ A).numpy(), rtol=5e-3, atol=5e-3)

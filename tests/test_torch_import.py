@@ -1,6 +1,7 @@
-"""The PyTorch port stands alone: importing it loads neither JAX nor the
-JAX package, no port file imports them, and its entry points run on the
-card unless the caller asks for the CPU."""
+"""The PyTorch port stands alone: importing it (the cluster, the fleet
+API and ``obs`` included) loads neither JAX, nor the JAX package, nor
+``ml_dtypes``; no port file imports them, and its entry points run on
+the card unless the caller asks for the CPU."""
 
 import os
 import re
@@ -17,7 +18,12 @@ PORT = ROOT / "src" / "repro_torch"
 
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|,|$)"
-    r"|from\s+repro(\.|\s))", re.M)
+    r"|from\s+repro(\.|\s)|import\s+ml_dtypes\b|from\s+ml_dtypes\b)",
+    re.M)
+
+# the one place the port touches ml_dtypes: handing bf16 weights to the
+# JAX package, which only the tests (JAX's side) call
+ML_DTYPES_ALLOWED = {"src/repro_torch/convert.py"}
 
 
 def test_import_leaves_jax_and_repro_unloaded():
@@ -28,10 +34,13 @@ def test_import_leaves_jax_and_repro_unloaded():
         "import repro_torch.api.__main__, repro_torch.cluster.faults, "
         "repro_torch.configs, repro_torch.models, repro_torch.parallel, "
         "repro_torch.serve, repro_torch.launch.serve\n"
+        "import repro_torch.cluster, repro_torch.cluster.transport, "
+        "repro_torch.api.fleet, repro_torch.obs, repro_torch._env\n"
         "repro_torch.compile_plan\n"
         "repro_torch.configs.get_config('phi3-mini-3.8b')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
-        "or m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "or m.startswith('jax.') or m == 'repro' or m.startswith('repro.') "
+        "or m == 'ml_dtypes' or m.startswith('ml_dtypes.'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -47,8 +56,9 @@ SCANNED = sorted([p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")]
 def test_scan_covers_every_subpackage():
     packages = {p.parent.relative_to(PORT).as_posix()
                 for p in PORT.rglob("__init__.py")}
-    assert {"api", "cluster", "configs", "core", "kernels", "launch",
-            "models", "parallel", "runtime", "serve"} <= packages
+    assert {"api", "cluster", "cluster/transport", "configs", "core",
+            "kernels", "launch", "models", "obs", "parallel", "runtime",
+            "serve"} <= packages
     for pkg in packages:
         assert any(path.startswith(f"src/repro_torch/{pkg}/".replace("/./", "/"))
                    for path in SCANNED), pkg
@@ -58,6 +68,8 @@ def test_scan_covers_every_subpackage():
 def test_no_jax_or_reference_import_in_source(path):
     src = (ROOT / path).read_text()
     hits = [m.group(0).strip() for m in _FORBIDDEN.finditer(src)]
+    if path in ML_DTYPES_ALLOWED:
+        hits = [h for h in hits if "ml_dtypes" not in h]
     assert not hits, f"{path} imports {hits}"
 
 

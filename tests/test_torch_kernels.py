@@ -427,3 +427,86 @@ def test_cpu_tensors_take_the_plain_version():
                                   decode_matmul_plain(h, y).numpy())
     assert launch_counts() == {"bcsr_matmul": 0, "cyclic_encode": 0,
                                "decode_matmul": 0}
+
+
+# ---------------------------------------------------------------------------
+# Thread safety: cluster workers are threads that launch kernels
+# ---------------------------------------------------------------------------
+
+
+def test_library_builds_once_under_concurrent_first_calls(monkeypatch,
+                                                          tmp_path):
+    """Eight threads reaching ``library()`` first, together: one build,
+    one binding, one library for all (the build stubbed)."""
+    import threading
+    import time
+    import types
+
+    from repro_torch.kernels import _build
+
+    builds, loads = [], []
+
+    def fake_compile(target):
+        builds.append(target)
+        time.sleep(0.05)            # widen the window a second build needs
+        target.write_bytes(b"")
+
+    class FakeLib:
+        def __getattr__(self, name):
+            return types.SimpleNamespace()
+
+    def fake_dll(path):
+        loads.append(path)
+        return FakeLib()
+
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_compile", fake_compile)
+    monkeypatch.setattr(_build.ctypes, "PyDLL", fake_dll)
+    barrier = threading.Barrier(8)
+    got = []
+
+    def first_call():
+        barrier.wait(timeout=30)
+        got.append(_build.library())
+
+    threads = [threading.Thread(target=first_call) for _ in range(8)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=60)
+    assert not any(th.is_alive() for th in threads)
+    assert len(builds) == 1 and len(loads) == 1
+    assert len(got) == 8 and all(lib is got[0] for lib in got)
+    assert _build.build_info["cached"] is False
+
+
+def test_launch_counters_exact_across_threads():
+    """``count_launch`` from 8 threads at once, with the interpreter
+    switching threads as often as it can: no increment is lost."""
+    import sys
+    import threading
+
+    from repro_torch.kernels import _build
+
+    per_thread, saved = 20000, launch_counts()
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        reset_launch_counts()
+        threads = [threading.Thread(target=lambda fn=fn: [
+            _build.count_launch(fn) for _ in range(per_thread)])
+            for fn in (bcsr_matmul, cyclic_encode, decode_matmul,
+                       bcsr_matmul) * 2]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+        assert not any(th.is_alive() for th in threads)
+        assert launch_counts() == {"bcsr_matmul": 4 * per_thread,
+                                   "cyclic_encode": 2 * per_thread,
+                                   "decode_matmul": 2 * per_thread}
+    finally:
+        sys.setswitchinterval(old)
+        for fn in (bcsr_matmul, cyclic_encode, decode_matmul):
+            fn.launches = saved[fn.__name__]

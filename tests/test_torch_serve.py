@@ -268,8 +268,7 @@ def test_engine_mask_routes_through_faults():
             rtol=5e-3, atol=5e-3)
 
 
-@pytest.mark.parametrize("mode", [dict(cluster=True), dict(fleet=object()),
-                                  dict(router=object())])
+@pytest.mark.parametrize("mode", [dict(router=object())])
 def test_unported_coded_modes_raise(mode):
     cfg = port_configs.get_smoke_config("phi3-mini-3.8b")
     model = build_model(cfg, torch.float32, device=CPU)
