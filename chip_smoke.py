@@ -68,10 +68,31 @@ Phases, one JSON line each:
      in the children (each child reports its own counts over the pipe's
      control channel, with its pid, its card and the device memory its
      shard holds), 1 ``cyclic_encode`` at the engine's build.  Every
-     clean round has no death, requeue or suspicion.
+     clean round has no death, requeue or suspicion;
+  8. edge -- the cluster across processes and hosts, and under chaos, on
+     the same head with card workers, one line per sub-phase with its
+     wall time: the plan spans of one ``compile_plan`` and one
+     ``retune`` under ``REPRO_TRACE`` (2 ``cyclic_encode``); the head
+     over ``to_cluster(transport="tcp")`` (six spawned card children,
+     worker 4 slowed 40x, their start-up and the 600 MB shard attach,
+     six sha256 acks, the 5 masks and the all-alive one bitwise the
+     in-process engine and within max(REL, kappa eps) of f64, 1
+     ``decode_matmul`` per round in the parent and one ``bcsr_matmul``
+     per returned task in each child by its own report); 8 traced
+     racing rounds whose attribution names worker 4 first and lowest
+     in ``observed_rates()``; worker 2 removed and replaced by a remote
+     ``python -m repro_torch.cluster.worker --connect`` card process,
+     caught up (re-encode to five hosts and back, its digest acked),
+     two rounds bitwise, its own stdout report; the head over
+     ``to_cluster(transport="shm")`` (header-only task bytes, no
+     ``/dev/shm`` entry left after shutdown); ``run_chaos`` with card
+     workers on ``memory`` at head width under the JAX package's storm
+     and on ``tcp`` at the JAX package's geometry (seed 3), every
+     resolved value bitwise its replay.
 
 Launch counters are set to 0 just before each main path (mv, mm,
-serve, cluster) and read just after: every encode must have gone through
+serve, cluster, and each edge sub-phase) and read just after; a child
+process's launches come from its own report: every encode must have gone through
 ``cyclic_encode``, every worker product through ``bcsr_matmul`` (one
 launch per matvec and per matmat) and every decode through
 ``decode_matmul`` (one per matvec, matmat and ``decode``).  Any failure raises and exits non-zero.  The
@@ -88,8 +109,10 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import io
 import json
+import os
 import subprocess
 import sys
 import time
@@ -100,8 +123,15 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+import repro_torch.obs.trace as trace_mod  # noqa: E402
 from repro_torch.api import compile_plan  # noqa: E402
-from repro_torch.cluster import StragglerFaults  # noqa: E402
+from repro_torch.cluster import (  # noqa: E402
+    ChaosEvent,
+    StragglerFaults,
+    adversarial_faults,
+    run_chaos,
+    scripted_schedule,
+)
 from repro_torch.cluster.wire import PlanShard  # noqa: E402
 from repro_torch.cluster.worker import CardTask  # noqa: E402
 from repro_torch.configs.base import CodedConfig  # noqa: E402
@@ -124,6 +154,7 @@ from repro_torch.kernels.decode_matmul import (  # noqa: E402
 )
 from repro_torch.launch import serve as launcher  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.obs import attribute  # noqa: E402
 from repro_torch.runtime import encode_blocks, support_tables  # noqa: E402
 from repro_torch.runtime.pack import unpack_coded_blocks  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
@@ -387,6 +418,15 @@ def straggler_masks(rng, n: int, s: int, count: int) -> list[np.ndarray]:
 
 def launched_since(before: dict) -> dict:
     return {k: v - before[k] for k, v in launch_counts().items()}
+
+
+def expect_between(where: str, counts: dict, **bounds) -> None:
+    """Each named count within its (low, high) bounds; None: unbounded."""
+    bad = {name: counts[name] for name, (lo, hi) in bounds.items()
+           if counts[name] < lo or (hi is not None and counts[name] > hi)}
+    if bad:
+        raise AssertionError(f"{where}: launch counts {counts}, expected "
+                             f"within {bounds}")
 
 
 def expect_counts(where: str, counts: dict, **want) -> None:
@@ -1195,14 +1235,15 @@ def hold_parity(where: str, got, want, dtype, plan, done, ref, t, stored
 
 def phase_cluster(seed: int, dev, gen, rng, serve: dict, t_dim: int = 8192,
                   r_dim: int = 4096, w_dim: int = 4096,
-                  kernel_reps: int = 50) -> tuple[dict, list]:
+                  kernel_reps: int = 50) -> tuple[dict, list, dict]:
     """The serve engine's cluster mode on the serve phase's model, the
     Fig. 4 matmat over ``to_cluster``, and the head over the ``pipe``
     transport, all with card workers, each path's launches counted from
     0; between the first two, the kernel rows at the cluster's shapes and
     the ``census`` of one cluster round; last, a racing round and the
     decode row's trace taken again, which must be whole after the pipe
-    children.  -> (the path's launch counts, summed; the kernel rows)."""
+    children.  -> (the path's launch counts, summed; the kernel rows;
+    what the edge phase holds its results to)."""
     engine0, hidden = serve["engine"], serve["hidden"]
     cfg, model, params = engine0.cfg, engine0.model, engine0.params
     head = params["embed"].T if cfg.tie_embeddings else params["head"]
@@ -1430,7 +1471,10 @@ def phase_cluster(seed: int, dev, gen, rng, serve: dict, t_dim: int = 8192,
          device_ms_before=rows[-1]["device_ms"],
          primer_seen=info["primer_seen"],
          primer_launched=info["primer_launched"])
-    return counts, rows
+    edge = {"plan": plan, "hidden": hidden, "masks": masks, "wants": wants,
+            "ref": ref, "dtype": dtype, "d": d, "stored": stored,
+            "engine": engine0}
+    return counts, rows, edge
 
 
 def kernels_cluster(plan, hidden, done, blob: bytes, reps: int
@@ -1468,6 +1512,421 @@ def kernels_cluster(plan, hidden, done, blob: bytes, reps: int
                              **kw))
     layout = prepare_decode(dplan.hinv_dev, y, "mv", **kw)
     return rows, lambda: launch_decode(layout, dplan.hinv_dev, y, None)
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the edge cluster across processes and hosts, and under chaos
+# ---------------------------------------------------------------------------
+
+# the tcp fleet's slowed worker (the attribution check names it)
+EDGE_SLOW = 4
+# how long a remote worker may take to join and be caught up (its CUDA
+# context, then the re-encode back to full strength and its shard)
+REMOTE_WAIT_S = 300.0
+# the tcp chaos run's warm-up: four card children start and attach
+# before the schedule's epoch (six were ready in 9-11 s in the pipe path)
+CHAOS_TCP_WARMUP_S = 30.0
+# the JAX package's storm of test_memory_within_budget_all_resolve_bitwise
+CHAOS_STORM = [
+    ChaosEvent(kind="slow", t0=0.2, t1=1.0, worker=2, delay_s=0.1),
+    ChaosEvent(kind="kill", t0=0.5, t1=1.2, worker=1),
+    ChaosEvent(kind="join", t0=0.8),
+    ChaosEvent(kind="leave", t0=1.1, worker=3),
+    ChaosEvent(kind="reconnect", t0=1.6, worker=1),
+]
+
+
+def wait_for(what: str, pred, timeout: float) -> float:
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"{what}: not within {timeout} s")
+        time.sleep(0.05)
+    return time.perf_counter() - t0
+
+
+def add_counts(*counts: dict) -> dict:
+    return {name: sum(c.get(name, 0) for c in counts) for name in SOURCES}
+
+
+def children_on_card(where: str, reports: dict, pids: dict) -> dict:
+    """Each child in its own words: its pid, the card, device memory its
+    shard holds, its launches."""
+    card = torch.cuda.get_device_name(0)
+    bad = [w for w, r in reports.items()
+           if r["pid"] != pids[w] or r["backend"] != "cuda"
+           or not r["device"].startswith("cuda") or r["device_name"] != card
+           or r["memory_allocated"] <= 0]
+    if sorted(reports) != sorted(pids) or bad:
+        raise AssertionError(f"{where}: children {sorted(pids)} (bad: {bad}) "
+                             f"do not compute on the card: {reports}")
+    return {w: {"pid": r["pid"], "device_name": r["device_name"],
+                "memory_allocated": r["memory_allocated"],
+                "launches": r["launches"]} for w, r in reports.items()}
+
+
+def edge_rounds(where: str, cl, e: dict, masks, wants) -> tuple:
+    """Explicit-mask rounds over a process cluster: per round the parent
+    launches one ``decode_matmul`` and no ``bcsr_matmul``, and each child
+    one ``bcsr_matmul`` per task it returned (by its own report); each
+    result is bitwise the in-process engine's and within max(REL, κ·ε)
+    of f64.  -> (the checks, children's launches per round, the last
+    reports)."""
+    tr, plan = cl.transport, e["plan"]
+    prev = tr.reports()
+    checks, per_round = [], []
+    for done, want in zip(masks, wants):
+        before = launch_counts()
+        got = cl.matvec(e["hidden"], done)
+        torch.cuda.synchronize()
+        expect_counts(f"one {where} matvec (parent)", launched_since(before),
+                      bcsr_matmul=0, cyclic_encode=0, decode_matmul=1)
+        now = tr.reports()
+        per_child = {w: {name: c - prev[w]["launches"][name]
+                         for name, c in now[w]["launches"].items()}
+                     for w in now}
+        served = cl.last_report.completed_per_worker
+        if sorted(per_child) != sorted(prev) or \
+                sum(served.values()) < plan.k:
+            raise AssertionError(f"one {where} matvec: children "
+                                 f"{sorted(per_child)}, served {served}")
+        for w, c in per_child.items():
+            expect_counts(f"one {where} matvec (child {w})", c,
+                          bcsr_matmul=served.get(w, 0), cyclic_encode=0,
+                          decode_matmul=0)
+        per_round.append(sum(served.values()))
+        prev = now
+        row = hold_parity(where, got, want, e["dtype"], plan, done, e["ref"],
+                          e["d"], e["stored"])
+        if not row["bitwise_in_process"]:
+            raise AssertionError(f"{where}: not bitwise the in-process "
+                                 f"engine: {row}")
+        checks.append(row)
+    clean(where, cl.reports)
+    return checks, per_round, prev
+
+
+def check_chaos(where: str, res, calls: int) -> dict:
+    """A chaos run's outcomes: every call resolved or failed with a
+    structured error, every resolved value bitwise its replay and close
+    to the fault-free result (run_chaos asserts both), none failed
+    within the budget."""
+    c = res.counts()
+    if sum(c.values()) != calls or (res.max_concurrent <= res.s
+                                    and c["failed"]):
+        raise AssertionError(f"{where}: {res.as_dict()}")
+    resolved = [o for o in res.outcomes if o.outcome != "failed"]
+    if not resolved or not all(o.bitwise and o.correct for o in resolved):
+        raise AssertionError(f"{where}: {res.outcomes}")
+    return res.as_dict()
+
+
+def phase_edge(seed: int, dev, e: dict) -> dict:
+    """The edge cluster across processes and hosts, on the serve phase's
+    head (n=6, s=2) with card workers: (e1) the plan spans of one
+    compile and one retune; (a) the head over ``tcp`` with six spawned
+    card children, one of them slowed, under the cluster phase's 5 masks
+    and the all-alive one; (e2) 8 traced racing rounds on that fleet,
+    whose attribution names the slowed worker; (b) worker 2 removed and
+    replaced by a remote ``python -m repro_torch.cluster.worker
+    --connect`` process on the card; (c) the head over ``shm``; (d)
+    ``run_chaos`` with card workers on ``memory`` at head width and on
+    ``tcp`` at the JAX package's geometry.  -> the path's launches, the
+    children's included."""
+    plan, hidden = e["plan"], e["hidden"]
+    n, k = plan.n, plan.k
+    all_alive = np.ones(n, bool)
+    masks = list(e["masks"]) + [all_alive]
+    wants = list(e["wants"]) + [e["engine"].coded_logits(hidden, all_alive)]
+    torch.cuda.synchronize()
+    totals = []
+
+    # -- (e1) the plan spans, on the process-global tracer -----------------
+    t_sub = time.perf_counter()
+    os.environ["REPRO_TRACE"] = "1"
+    trace_mod._GLOBAL = None
+    tracer = trace_mod.default_tracer()
+    gen = torch.Generator(device=dev).manual_seed(seed + 8)
+    small = block_sparse(gen, dev, 1024, 512, 0.5)
+    reset_launch_counts()
+    sp = compile_plan(small, scheme="proposed", n=n, s=plan.s,
+                      backend=plan.backend)
+    sp.retune(block_sparse(gen, dev, 1024, 512, 0.5))
+    torch.cuda.synchronize()
+    span_counts = launch_counts()
+    expect_counts("edge compile + retune", span_counts, bcsr_matmul=0,
+                  cyclic_encode=2, decode_matmul=0)
+    totals.append(span_counts)
+    spans = [{"name": ev["name"], "args": ev["args"]}
+             for ev in tracer.events() if ev["cat"] == "plan"]
+    # the retune re-picks the backend: on the card, cuda again
+    if [(s_["name"], s_["args"]["backend"]) for s_ in spans] != [
+            ("plan.encode", plan.backend), ("plan.compile", plan.backend),
+            ("plan.encode", sp.backend)]:
+        raise AssertionError(f"edge plan spans: {spans}")
+    emit("edge", case="plan-spans", spans=spans, launches=span_counts,
+         wall_s=time.perf_counter() - t_sub)
+    del sp, small
+
+    # -- (a) tcp, six spawned card children --------------------------------
+    t_sub = time.perf_counter()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    cl = plan.to_cluster(transport="tcp", faults=adversarial_faults(
+        [EDGE_SLOW], slowdown=40.0, time_scale=2e-3))
+    remote = None
+    try:
+        start_s = time.perf_counter() - t0
+        card_workers("tcp cluster", cl)
+        tr, h, fleet = cl.transport, cl.handle, cl.fleet
+        pids = {w: p.pid for w, p in tr._procs.items()}
+        ready = max(s_["ready_s"] for s_ in tr.startup.values())
+        want_acks = {w: hashlib.sha256(blob).hexdigest()
+                     for w, blob in enumerate(h.shard_blobs)}
+        wait_for("tcp shard acks", lambda: tr.shard_acks == want_acks, 60.0)
+        t0 = time.perf_counter()
+        checks, per_round, reps_a = edge_rounds("tcp", cl, e, masks, wants)
+        rounds_s = time.perf_counter() - t0
+        children = children_on_card("tcp", reps_a, pids)
+        rep = cl.last_report
+        a_counts = launch_counts()
+        expect_counts("edge tcp (parent)", a_counts, bcsr_matmul=0,
+                      cyclic_encode=0, decode_matmul=len(masks))
+        a_child = {name: sum(r["launches"][name] for r in reps_a.values())
+                   for name in SOURCES}
+        expect_counts("edge tcp (children)", a_child,
+                      bcsr_matmul=sum(per_round), cyclic_encode=0,
+                      decode_matmul=0)
+        totals += [a_counts, a_child]
+        emit("edge", case="tcp", transport="tcp", workers=len(pids),
+             start_s=start_s, ready_s_max=ready,
+             attach_s=start_s - ready, startup=tr.startup,
+             bytes_shards=cl.bytes_shards, shard_acks=len(tr.shard_acks),
+             children=children, child_bcsr_per_round=per_round,
+             patterns=checks, rounds_s=rounds_s,
+             bytes_tasks_per_round=rep.bytes_tasks,
+             round_wall_s=[r.wall_s for r in cl.reports],
+             launches=a_counts, child_launches=a_child,
+             wall_s=time.perf_counter() - t_sub)
+
+        # -- (e2) 8 traced racing rounds: attribution names the slow one ---
+        t_sub = time.perf_counter()
+        reset_launch_counts()
+        prev = tr.reports()
+        raced = []
+        for _ in range(8):
+            got = cl.matvec(hidden)
+            torch.cuda.synchronize()
+            r_ = cl.last_report
+            raced.append(check_decoded("tcp racing", e["dtype"], plan,
+                                       r_.pattern, got, e["ref"], e["d"],
+                                       e["stored"]))
+        e_counts = launch_counts()
+        expect_counts("edge traced rounds (parent)", e_counts,
+                      bcsr_matmul=0, cyclic_encode=0, decode_matmul=8)
+        now = tr.reports()
+        e_child = {name: sum(now[w]["launches"][name]
+                             - prev[w]["launches"][name] for w in now)
+                   for name in SOURCES}
+        # every round's k fastest answered; a cancel may land before a
+        # slow child starts its task, so between 8k and 8n in all
+        expect_between("edge traced rounds (children)", e_child,
+                       bcsr_matmul=(8 * k, 8 * n), cyclic_encode=(0, 0),
+                       decode_matmul=(0, 0))
+        totals += [e_counts, e_child]
+        attrib = attribute(tracer.events())
+        rates = fleet.observed_rates()
+        if attrib.suspects()[0] != EDGE_SLOW or rates is None or \
+                min(rates, key=rates.get) != EDGE_SLOW:
+            raise AssertionError(f"edge attribution: suspects "
+                                 f"{attrib.suspects()}, rates {rates}")
+        emit("edge", case="traced", rounds=len(attrib.rounds),
+             suspects=attrib.suspects(), slowed=EDGE_SLOW,
+             compute_rates=rates, phase_totals_s=attrib.phase_totals(),
+             table=attrib.table().splitlines(), racing=raced,
+             launches=e_counts, child_launches=e_child,
+             wall_s=time.perf_counter() - t_sub)
+
+        # -- (b) worker 2 leaves, a remote card worker joins as 2 ----------
+        t_sub = time.perf_counter()
+        reset_launch_counts()
+        prev = {w: r for w, r in tr.reports().items() if w != 2}
+        fleet.remove_worker(2)
+        root = Path(__file__).resolve().parent
+        # the remote computes where the fleet's workers do: on the card
+        remote = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.cluster.worker",
+             "--connect", f"127.0.0.1:{tr.port}", "--id", "2",
+             "--device", str(fleet.device)],
+            env={**os.environ, "PYTHONPATH": str(root / "src")},
+            stdout=subprocess.PIPE, text=True)
+        ps = h._ps
+
+        def caught_up() -> bool:
+            return (h.plan is plan and ps.n_shards == n
+                    and not ps.pending_reencode and tr.alive(2)
+                    and any(pid == h.plan_id for pid, _ in
+                            fleet._held.get(2, ())))
+
+        join_s = wait_for("remote worker 2 caught up", caught_up,
+                          REMOTE_WAIT_S)
+        idx = next(i for pid, i in fleet._held[2] if pid == h.plan_id)
+        digest = hashlib.sha256(ps.shard_blobs[idx]).hexdigest()
+        wait_for("remote shard ack", lambda: tr.shard_acks.get(2) == digest,
+                 60.0)
+        rows2 = sorted(row for row, o in ps.owner.items() if o == 2)
+        pick = next((i for i, m in enumerate(e["masks"]) if m[rows2].all()),
+                    None)
+        if pick is None:
+            raise AssertionError(f"no cluster mask needs worker 2's rows "
+                                 f"{rows2}")
+        b_masks, b_wants = [all_alive, masks[pick]], [wants[-1], wants[pick]]
+        b_checks, b_reports = [], []
+        for done, want in zip(b_masks, b_wants):
+            got = cl.matvec(hidden, done)
+            torch.cuda.synchronize()
+            b_reports.append(cl.last_report)
+            row = hold_parity("remote", got, want, e["dtype"], plan, done,
+                              e["ref"], e["d"], e["stored"])
+            if not row["bitwise_in_process"]:
+                raise AssertionError(f"remote: not bitwise (a): {row}")
+            b_checks.append(row)
+        clean("remote", b_reports)
+        now = {w: r for w, r in tr.reports().items() if w != 2}
+        b_local = {name: sum(now[w]["launches"][name]
+                             - prev[w]["launches"][name] for w in now)
+                   for name in SOURCES}
+        b_counts = launch_counts()
+        # the parent: one re-encode per compiled shrink (the leave), none
+        # for the return to full strength (the first compile is reused)
+        expect_counts("edge remote (parent)", b_counts, bcsr_matmul=0,
+                      cyclic_encode=len(ps._plan_cache), decode_matmul=2)
+        served2 = sum(r.completed_per_worker.get(2, 0) for r in b_reports)
+        served = sum(sum(r.completed_per_worker.values()) for r in b_reports)
+        if served2 < 1:
+            raise AssertionError(f"edge remote: worker 2 served none of "
+                                 f"{[r.completed_per_worker for r in b_reports]}")
+        expect_counts("edge remote (local children)", b_local,
+                      bcsr_matmul=served - served2, cyclic_encode=0,
+                      decode_matmul=0)
+    finally:
+        cl.shutdown()
+        if remote is not None:
+            try:
+                out, _ = remote.communicate(timeout=60)
+            finally:
+                if remote.poll() is None:
+                    remote.kill()
+                    remote.wait()
+    report = json.loads(out.strip().splitlines()[-1])
+    if remote.returncode != 0 or report["backend"] != fleet.backend or \
+            report["device_name"] != torch.cuda.get_device_name(0):
+        raise AssertionError(f"remote worker: rc {remote.returncode}, "
+                             f"report {report}")
+    expect_counts("remote worker (its report)", report["launches"],
+                  bcsr_matmul=served2, cyclic_encode=0, decode_matmul=0)
+    totals += [b_counts, b_local, report["launches"]]
+    emit("edge", case="remote", join_s=join_s, rows=rows2,
+         mask=masks[pick].tolist(), patterns=b_checks, remote=report,
+         reencodes=len(ps._plan_cache), launches=b_counts,
+         local_child_launches=b_local, wall_s=time.perf_counter() - t_sub)
+    os.environ.pop("REPRO_TRACE", None)
+    trace_mod._GLOBAL = None
+
+    # -- (c) shm, six card children ----------------------------------------
+    t_sub = time.perf_counter()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    cl = plan.to_cluster(transport="shm")
+    try:
+        start_s = time.perf_counter() - t0
+        card_workers("shm cluster", cl)
+        tr = cl.transport
+        prefix = tr.prefix
+        pids = {w: p.pid for w, p in tr._procs.items()}
+        ready = max(s_["ready_s"] for s_ in tr.startup.values())
+        t0 = time.perf_counter()
+        checks, per_round, reps_c = edge_rounds("shm", cl, e, masks, wants)
+        rounds_s = time.perf_counter() - t0
+        children = children_on_card("shm", reps_c, pids)
+        rep = cl.last_report
+        c_counts = launch_counts()
+        expect_counts("edge shm (parent)", c_counts, bcsr_matmul=0,
+                      cyclic_encode=0, decode_matmul=len(masks))
+        c_child = {name: sum(r["launches"][name] for r in reps_c.values())
+                   for name in SOURCES}
+        expect_counts("edge shm (children)", c_child,
+                      bcsr_matmul=sum(per_round), cyclic_encode=0,
+                      decode_matmul=0)
+        totals += [c_counts, c_child]
+        wire = cl.fleet.wire_totals()
+    finally:
+        cl.shutdown()
+    left = [f for f in os.listdir("/dev/shm") if f.startswith(prefix)]
+    if left:
+        raise AssertionError(f"shm: segments left after shutdown: {left}")
+    emit("edge", case="shm", transport="shm", workers=len(pids),
+         start_s=start_s, ready_s_max=ready, attach_s=start_s - ready,
+         startup=tr.startup, bytes_shards=wire["bytes_shards"],
+         children=children, child_bcsr_per_round=per_round,
+         patterns=checks, rounds_s=rounds_s,
+         bytes_tasks_per_round=rep.bytes_tasks,
+         bytes_copied_per_round=rep.bytes_copied,
+         bytes_tasks_dense_per_round=rep.bytes_tasks_dense,
+         transport_bytes_copied=wire["transport_bytes_copied"],
+         round_wall_s=[r.wall_s for r in cl.reports], segments_left=0,
+         launches=c_counts, child_launches=c_child,
+         wall_s=time.perf_counter() - t_sub)
+
+    # -- (d) chaos with card workers -----------------------------------------
+    t_sub = time.perf_counter()
+    calls = 16
+    reset_launch_counts()
+    res = run_chaos(CHAOS_STORM, transport="memory", n=n, s=plan.s,
+                    t=hidden.shape[1], r=e["ref"].shape[1], seed=seed,
+                    calls=calls, spacing_s=0.1, warmup_s=10.0, device=dev)
+    torch.cuda.synchronize()
+    d_counts = launch_counts()
+    mem = check_chaos("chaos memory", res, calls)
+    resolved = calls - mem["futures"]["failed"]
+    # the fault-free results, the replays and the fleet's decodes (and
+    # its warm call); the workers' products run in this process
+    if not res.joiner_serving:
+        raise AssertionError(f"chaos memory: the joiner is not serving: "
+                             f"{mem}")
+    expect_between("chaos memory", d_counts,
+                   bcsr_matmul=(calls + resolved + 1, None),
+                   cyclic_encode=(1, None),
+                   decode_matmul=(calls + 2 * resolved + 1,) * 2)
+    totals.append(d_counts)
+    emit("edge", case="chaos-memory", result=mem, launches=d_counts,
+         shape=[hidden.shape[1], e["ref"].shape[1]],
+         wall_s=time.perf_counter() - t_sub)
+
+    t_sub = time.perf_counter()
+    calls = 8
+    sched = scripted_schedule(seed=3, n=4, s=1, duration=1.5, n_events=3)
+    reset_launch_counts()
+    res = run_chaos(sched, transport="tcp", n=4, s=1, seed=3, calls=calls,
+                    spacing_s=0.15, warmup_s=CHAOS_TCP_WARMUP_S,
+                    suspect_after=1.0, device=dev)
+    torch.cuda.synchronize()
+    d_counts = launch_counts()
+    tcp = check_chaos("chaos tcp", res, calls)
+    resolved = calls - tcp["futures"]["failed"]
+    # the children's products run in the children; the parent makes the
+    # fault-free results, the replays and the fleet's decodes
+    expect_counts("chaos tcp (parent)", {
+        "bcsr_matmul": d_counts["bcsr_matmul"],
+        "decode_matmul": d_counts["decode_matmul"]},
+        bcsr_matmul=calls + resolved, decode_matmul=calls + 2 * resolved + 1)
+    totals.append(d_counts)
+    emit("edge", case="chaos-tcp", result=tcp, warmup_s=CHAOS_TCP_WARMUP_S,
+         first_submit_after_epoch_s=res.outcomes[0].t_submit,
+         launches=d_counts, wall_s=time.perf_counter() - t_sub)
+    counts = add_counts(*totals)
+    emit("edge", launches=counts)
+    return counts
 
 
 def main(argv=None) -> int:
@@ -1518,10 +1977,13 @@ def main(argv=None) -> int:
            serve["p50"], {"bcsr_matmul": 1, "cyclic_encode": 0,
                           "decode_matmul": 1})
     serve_counts = serve["counts"]
-    cluster_counts, cluster_rows = phase_cluster(args.seed, dev, gen, rng,
-                                                 serve)
+    cluster_counts, cluster_rows, edge = phase_cluster(args.seed, dev, gen,
+                                                       rng, serve)
     rows += cluster_rows
     del serve
+    torch.cuda.synchronize()
+    edge_counts = phase_edge(args.seed, dev, edge)
+    del edge
     torch.cuda.synchronize()
 
     if args.parent is not None:
@@ -1543,7 +2005,8 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": (mv_counts[name] + mm_counts[name]
-                         + serve_counts[name] + cluster_counts[name]),
+                         + serve_counts[name] + cluster_counts[name]
+                         + edge_counts[name]),
             "max_abs_err": main_row["max_abs_err"], "ms": main_row["ms"],
             "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],

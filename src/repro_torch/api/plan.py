@@ -27,6 +27,7 @@ decode machinery but no shards.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -37,6 +38,7 @@ from ..core.assignment import MMScheme, MVScheme
 from ..core.coded_matmul import split_block_columns
 from ..core.decoding import system_matrix
 from ..core.encoding import mm_encoding_matrices, mv_encoding_matrix
+from ..obs.trace import default_tracer
 from ..runtime import (
     CodedExecutor,
     DecodeCache,
@@ -301,7 +303,12 @@ def compile_plan(A=None, *, scheme="proposed", n=None, s=None,
     ``cuda`` on a CUDA device and the density pick elsewhere; the
     ``REPRO_CODED_BACKEND`` env var overrides everything, including auto.
     Without ``A`` the plan is aggregation-only.
+
+    With a tracer set (``REPRO_TRACE``), the compile is recorded as one
+    ``plan.compile`` complete event on the host clock.
     """
+    tr = default_tracer()
+    t0 = time.perf_counter() if tr is not None else 0.0
     dev = resolve_device(device, A)
     if isinstance(scheme, (MVScheme, MMScheme)):
         sch = scheme
@@ -320,16 +327,35 @@ def compile_plan(A=None, *, scheme="proposed", n=None, s=None,
         _attach_operand(plan, A, resolved)
     elif kind == "mv":
         plan.prewarm()      # aggregation-only: warm the all-alive pattern
+    if tr is not None:
+        tr.complete("plan.compile", t0, time.perf_counter(), cat="plan",
+                    track="plan", kind=kind, backend=resolved,
+                    n=sch.n, has_operand=A is not None)
     return plan
 
 
 def _attach_operand(plan: CodedPlan, A: torch.Tensor, resolved: str) -> None:
     """(Re)build the per-operand state: encode, pack, prewarm.
 
-    Shared by initial compilation and ``plan.retune``.
+    Shared by initial compilation and ``plan.retune``.  With a tracer
+    set, the attach is one ``plan.encode`` span of host time: on the
+    card it ends once the encode and pack are enqueued, which may be
+    before the device has finished them.
     """
     if A.ndim != 2:
         raise ValueError(f"operand must be 2-D (t, r), got {tuple(A.shape)}")
+    tr = default_tracer()
+    if tr is not None:
+        with tr.span("plan.encode", cat="plan", track="plan",
+                     kind=plan.kind, backend=resolved,
+                     shape=list(A.shape)):
+            _attach_operand_inner(plan, A, resolved)
+        return
+    _attach_operand_inner(plan, A, resolved)
+
+
+def _attach_operand_inner(plan: CodedPlan, A: torch.Tensor,
+                          resolved: str) -> None:
     sch, G, seed = plan.scheme, plan.G, plan.seed
     dev = plan.device
     if plan.kind == "mv":

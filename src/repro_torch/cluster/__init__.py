@@ -13,10 +13,12 @@ surface, backed by real workers:
   * ``worker``     -- the transport-agnostic worker core: one serve loop
     + heartbeat ticker shared by every transport; a host worker
     multiplies scipy BSR, a card worker runs ``bcsr_matmul``;
-  * ``transport``  -- the byte carriers ported so far: ``memory``
-    (in-process threads) and ``pipe`` (spawned subprocesses); pick via
-    ``to_cluster(transport=...)``, ``CodedConfig.transport``, or the
-    ``REPRO_CLUSTER_TRANSPORT`` env var;
+  * ``transport``  -- the byte carriers: ``memory`` (in-process
+    threads), ``pipe`` (spawned subprocesses), ``tcp`` (sockets, local
+    children or remote ``--connect`` workers) and ``shm`` (payloads in
+    shared-memory segments); pick via ``to_cluster(transport=...)``,
+    ``CodedConfig.transport``, or the ``REPRO_CLUSTER_TRANSPORT`` env
+    var;
   * ``fleet``      -- the session spine: ``CodedFleet`` owns one
     persistent worker set + one long-lived dispatcher loop;
     ``attach(plan)`` ships shards once and returns a ``PlanHandle``
@@ -27,13 +29,21 @@ surface, backed by real workers:
     decode is one ``decode_matmul`` per round;
   * ``dispatcher`` -- ``ClusterPlan``, the blocking single-plan shim;
   * ``faults``     -- deterministic latency / death / hang injection as a
-    decorator around any transport's serve path.
-
-Not ported yet (ROADMAP.md §1 items 9-10): the ``tcp`` and ``shm``
-transports, ``retry`` (``RetryPolicy``) and ``chaos`` (the seeded chaos
-harness).
+    decorator around any transport's serve path;
+  * ``retry``      -- ``RetryPolicy``: bounded attempts, exponential
+    backoff, deterministic jitter (tcp dials and shard shipping);
+  * ``chaos``      -- scripted, seeded fault storms against a live fleet
+    with parity, degradation and no-hang invariants (``run_chaos``).
 """
 
+from .chaos import (  # noqa: F401
+    CallOutcome,
+    ChaosEvent,
+    ChaosResult,
+    max_concurrent_failures,
+    run_chaos,
+    scripted_schedule,
+)
 from .dispatcher import ClusterPlan, ClusterReport  # noqa: F401
 from .faults import (  # noqa: F401
     FailStop,
@@ -56,12 +66,17 @@ from .fleet import (  # noqa: F401
     default_max_inflight,
     default_min_workers,
 )
+from .retry import RetryPolicy  # noqa: F401
 from .transport import (  # noqa: F401
     TRANSPORTS,
     Transport,
     make_transport,
     resolve_transport,
 )
+from .transport.memory import MemoryTransport  # noqa: F401
+from .transport.pipe import PipeTransport  # noqa: F401
+from .transport.shm import ShmTransport  # noqa: F401
+from .transport.tcp import TcpTransport  # noqa: F401
 from .wire import (  # noqa: F401
     Heartbeat,
     PlanShard,

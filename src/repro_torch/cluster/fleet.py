@@ -96,10 +96,12 @@ import torch
 
 from .._device import as_tensor, host_mask, resolve_device
 from .._env import env_int
+from ..obs.attrib import attribute
 from ..obs.trace import default_tracer
 from .transport import make_transport
 from .wire import Heartbeat, Task, WorkerJoin, WorkerLeave, plan_packed, \
     shard_plan
+from .worker import worker_backend
 
 ENV_MAX_INFLIGHT = "REPRO_FLEET_MAX_INFLIGHT"
 ENV_MIN_WORKERS = "REPRO_FLEET_MIN_WORKERS"
@@ -557,8 +559,8 @@ class CodedFleet:
         # the host scipy path unless ``backend="cuda"`` asks for the
         # card path's plain version
         self.device = resolve_device(device)
-        self.backend = backend if backend is not None else (
-            "cuda" if self.device.type == "cuda" else "packed")
+        self.backend = backend if backend is not None else \
+            worker_backend(self.device)
         self.n_workers = n_workers
         self.heartbeat_s = heartbeat_s
         self.suspect_after = suspect_after if suspect_after is not None \
@@ -779,7 +781,7 @@ class CodedFleet:
 
         ``rates`` (worker -> work/s) substitutes an external
         measurement for the heartbeat-path EWMAs -- e.g. the per-worker
-        compute rates ``repro.obs.attribute`` derives from traced
+        compute rates ``repro_torch.obs.attribute`` derives from traced
         worker-side timestamps, which see pure compute time instead of
         the whole submit->result loop (a higher-fidelity capacity
         signal under queueing or wire noise)."""
@@ -794,6 +796,23 @@ class CodedFleet:
         top = max(rates)
         return [max(1, round(levels * r / top)) for r in rates]
 
+    def observed_rates(self) -> dict | None:
+        """Per-worker compute rates (work/s of *pure compute*) derived
+        from the active tracer's round records via
+        ``repro_torch.obs.attribute``, or None when untraced / nothing
+        recorded yet.  This is the default ``rates=`` feed for the
+        degradation re-encode path: when tracing is on, a
+        ``proposed-hetero`` re-cut follows measured worker-side compute
+        time instead of the coarser submit->result EWMAs."""
+        tr = self._tracer
+        if tr is None:
+            return None
+        try:
+            rates = attribute(tr.events()).compute_rates()
+        except Exception:                   # malformed/partial records
+            return None
+        return rates or None
+
     def add_worker(self, worker: int | None = None, *,
                    timeout: float = 60.0) -> int:
         """Admit one worker into the running session: the transport
@@ -806,7 +825,11 @@ class CodedFleet:
         waiter = concurrent.futures.Future()
 
         def register():
-            if w in self._beats and w not in self._dead:
+            if self._closed:
+                # close() already failed the waiters it knew of: this one
+                # would wait out its timeout on a fleet that is gone
+                waiter.set_exception(RuntimeError("fleet closed"))
+            elif w in self._beats and w not in self._dead:
                 if not waiter.done():
                     waiter.set_result(w)    # join event already processed
             else:
@@ -1740,9 +1763,10 @@ class CodedFleet:
             k_goal = max(plan0.k, n_target - (plan0.n - plan0.k))
         else:
             k_goal = min(plan0.k, n_target)
-        # the cut follows the submit->result EWMAs (tracer-derived
-        # rates wait for the attribution layer, ROADMAP.md §1 item 11)
-        caps = self.worker_capacities(live)
+        # tracer-derived per-worker compute rates (repro_torch.obs),
+        # when a tracer recorded any rounds, beat the heartbeat-path
+        # EWMAs: the hetero cut then reflects measured device speed
+        caps = self.worker_capacities(live, rates=self.observed_rates())
         virt = None
         if (plan0.kind == "mv" and len(set(caps)) > 1
                 and sch0.name in ("proposed", "proposed-hetero")):
@@ -1906,7 +1930,7 @@ class CodedFleet:
         the used task whose arrival made it decodable -- into
         coordinator-queue / wire-out / worker-queue / compute /
         wire-back / decode segments.  One structured ``round`` record
-        (cat="round") carries the whole breakdown; ``repro.obs.attrib``
+        (cat="round") carries the whole breakdown; ``repro_torch.obs.attrib``
         consumes exactly that record.
         """
         tr = self._tracer

@@ -1,17 +1,22 @@
-"""Pluggable cluster transports, as far as the port has them: memory | pipe.
+"""Pluggable cluster transports: memory | pipe | tcp | shm (the port of
+``repro.cluster.transport``).
 
 One ``Transport`` interface (``base.Transport``: start / ship-shard /
-submit / cancel / uniform result+heartbeat stream / close), two
-implementations so far:
+submit / cancel / uniform result+heartbeat stream / close), four
+implementations:
 
   * ``memory`` -- in-process serve threads (deterministic default);
   * ``pipe``   -- spawned subprocesses over ``multiprocessing`` pipes,
-    heartbeat-capable.
-
-The JAX package's ``tcp`` (asyncio localhost sockets with a hello
-handshake and sha256-verified shard shipping) and ``shm`` (payloads in
-shared-memory segments) are not ported yet: naming either raises
-``NotImplementedError`` (ROADMAP.md §1 item 9).
+    heartbeat-capable;
+  * ``tcp``    -- asyncio sockets speaking length-prefixed frames of the
+    versioned wire format, with a hello handshake (wire version +
+    worker id), sha256-verified shard shipping, and remote workers
+    (``python -m repro_torch.cluster.worker --connect``);
+  * ``shm``    -- the pipe transport's control plane with payloads in
+    ``multiprocessing.shared_memory`` segments (wire v6): shards land
+    once, tasks ship segment references instead of bytes, results
+    write into a per-round slab the coordinator decodes in place --
+    the zero-copy path for co-located workers.
 
 ``make_transport(None, ...)`` resolves the default from the
 ``REPRO_CLUSTER_TRANSPORT`` env var (falling back to ``memory``), so a
@@ -29,14 +34,15 @@ import os
 from .base import Transport  # noqa: F401
 from .memory import MemoryTransport
 from .pipe import PipeTransport
+from .shm import ShmTransport
+from .tcp import TcpTransport
 
 TRANSPORTS: dict[str, type] = {
     "memory": MemoryTransport,
     "pipe": PipeTransport,
+    "tcp": TcpTransport,
+    "shm": ShmTransport,
 }
-
-# the JAX package's transports this port does not have yet
-UNPORTED = ("tcp", "shm")
 
 ENV_TRANSPORT = "REPRO_CLUSTER_TRANSPORT"
 
@@ -44,10 +50,6 @@ ENV_TRANSPORT = "REPRO_CLUSTER_TRANSPORT"
 def resolve_transport(name: str | None) -> str:
     """Explicit name > ``REPRO_CLUSTER_TRANSPORT`` env var > ``memory``."""
     name = name or os.environ.get(ENV_TRANSPORT) or "memory"
-    if name in UNPORTED:
-        raise NotImplementedError(
-            f"the {name} cluster transport is not ported yet (ROADMAP.md "
-            f"§1 item 9); use one of {sorted(TRANSPORTS)}")
     if name not in TRANSPORTS:
         raise ValueError(f"cluster transport must be one of "
                          f"{sorted(TRANSPORTS)}, got {name!r}")

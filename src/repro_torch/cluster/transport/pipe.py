@@ -102,6 +102,9 @@ def _pipe_worker_main(conn, worker_id: int, fault_spec, heartbeat_s: float,
 
 class PipeTransport(Transport):
     name = "pipe"
+    # the child entry point ``_spawn`` starts (shm's child resolves
+    # segment references on top of this one's protocol)
+    _child_main = staticmethod(_pipe_worker_main)
 
     def __init__(self, n_workers: int, *, faults=None,
                  heartbeat_s: float = 0.25, device=None,
@@ -129,7 +132,7 @@ class PipeTransport(Transport):
         ctx = mp.get_context("spawn")
         conn, child = ctx.Pipe()
         proc = ctx.Process(
-            target=_pipe_worker_main,
+            target=self._child_main,
             args=(child, w, self.faults.to_spec(), self.heartbeat_s,
                   str(self.device), self.backend),
             daemon=True)

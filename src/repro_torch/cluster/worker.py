@@ -37,11 +37,18 @@ depend on how bytes reach it:
 
 The transports (``repro_torch.cluster.transport``) supply only the
 plumbing: an inbox of ``(kind, value)`` messages and an ``emit``
-callable for results/beats.  Thread and pipe workers therefore run *the
-same code* -- which is what makes the C(n, s) dispatcher-parity sweep a
-property of the stack rather than of one backend.  The JAX package's
-remote tcp worker (``python -m repro.cluster.worker --connect``) waits
-for the tcp transport (ROADMAP.md §1 item 9).
+callable for results/beats.  Thread, pipe, tcp and shm workers
+therefore run *the same code* -- which is what makes the C(n, s)
+dispatcher-parity sweep a property of the stack rather than of one
+backend.
+
+Run ``python -m repro_torch.cluster.worker --connect host:port --id N``
+to join a remote tcp fleet from another machine: the process prepares
+its device (on the card unless ``--device cpu``), dials the
+coordinator, handshakes (hello record carrying the wire version),
+downloads its shards (sha256-verified), heartbeats, and serves until
+the coordinator says stop; then it prints its ``worker_report`` as one
+JSON line on stdout.
 """
 
 from __future__ import annotations
@@ -59,6 +66,12 @@ from .wire import Heartbeat, PlanShard, Task, TaskResult, death_notice
 
 # what a worker computes with: the host's scipy BSR, or the card's kernel
 WORKER_BACKENDS = ("packed", "cuda")
+
+
+def worker_backend(device) -> str:
+    """What a worker on ``device`` computes with unless told otherwise:
+    the card's kernel on a CUDA device, else host BSR."""
+    return "cuda" if torch.device(device).type == "cuda" else "packed"
 
 
 def prepare_device(device, backend: str) -> None:
@@ -107,9 +120,11 @@ class CardTask:
     bm x bk blocks) re-tiled into the ``cuda`` backend's packed form of
     A_i (``packed``: 32x32 tiles, only the nonzero ones, on ``device``);
     calling it on a host operand (t_pad, width) runs one ``bcsr_matmul``
-    and returns A_i^T @ operand (c_pad, width) on the host."""
+    and returns A_i^T @ operand (c_pad, width) on the host, or with
+    ``host=False`` as a tensor on ``device``."""
 
-    def __init__(self, shard: PlanShard, t: dict, device: torch.device):
+    def __init__(self, shard: PlanShard, t: dict, device: torch.device,
+                 host: bool = True):
         from ..runtime.executor import CUDA_TILE  # noqa: PLC0415
         from ..runtime.pack import pack_coded_blocks  # noqa: PLC0415
 
@@ -129,14 +144,15 @@ class CardTask:
         self.packed = pack_coded_blocks(dense, CUDA_TILE, CUDA_TILE)
         self.device = device
         self.c_pad = shard.c_pad
+        self.host = host
 
-    def __call__(self, operand: np.ndarray) -> np.ndarray:
+    def __call__(self, operand: np.ndarray):
         from ..kernels.bcsr_matmul import bcsr_matmul  # noqa: PLC0415
 
         p = self.packed
         b = torch.tensor(operand, device=self.device)
         y = bcsr_matmul(p.a_data, p.a_idx, b, mb=p.mb, counts=p.counts)
-        return y[: self.c_pad].cpu().numpy()
+        return y[: self.c_pad].cpu().numpy() if self.host else y[: self.c_pad]
 
 
 class ShardRuntime:
@@ -144,14 +160,19 @@ class ShardRuntime:
 
     ``backend`` picks the path (``packed``: scipy BSR on the host;
     ``cuda``: ``bcsr_matmul`` on ``device``, see the module docstring).
+    ``host_results=False`` leaves a card task's ``y`` a tensor on
+    ``device``, for a transport whose emit stores it straight into a
+    shared result slab.
     """
 
-    def __init__(self, device=None, backend: str = "packed"):
+    def __init__(self, device=None, backend: str = "packed",
+                 host_results: bool = True):
         if backend not in WORKER_BACKENDS:
             raise ValueError(f"worker backend must be one of "
                              f"{WORKER_BACKENDS}, got {backend!r}")
         self.device = torch.device(device if device is not None else "cpu")
         self.backend = backend
+        self.host_results = host_results
         self.tasks: dict[tuple[int, int], dict] = {}
         # per-plan operand geometry (t_pad, bk) for the support scatter
         self.geometry: dict[int, tuple[int, int]] = {}
@@ -174,7 +195,8 @@ class ShardRuntime:
             entry = {"work": shard.work[j], "op": None}
             if shard.tasks:
                 entry["op"] = (
-                    CardTask(shard, shard.tasks[j], self.device)
+                    CardTask(shard, shard.tasks[j], self.device,
+                             self.host_results)
                     if self.backend == "cuda"
                     else _bsr_operator(shard, shard.tasks[j]))
             self.tasks[(shard.plan, row)] = entry
@@ -254,7 +276,7 @@ def start_heartbeat(worker_id: int, emit, interval: float,
 
 def serve_loop(worker_id: int, inbox: "queue.Queue", emit, faults=None,
                stop_beats: threading.Event | None = None, *, device=None,
-               backend: str = "packed") -> str:
+               backend: str = "packed", host_results: bool = True) -> str:
     """The shared worker state machine (see module docstring).
 
     ``inbox`` delivers ``(kind, value)`` messages -- ``shard`` (wire
@@ -263,11 +285,11 @@ def serve_loop(worker_id: int, inbox: "queue.Queue", emit, faults=None,
     ``TaskResult``s.  Returns ``"stop"`` | ``"death"`` | ``"hang"`` so
     the transport runner knows whether to exit cleanly, notify, or park
     with the connection open (a hung edge device does not close its
-    socket).  ``device`` and ``backend`` pick the worker's compute path
-    (``ShardRuntime``).
+    socket).  ``device``, ``backend`` and ``host_results`` pick the
+    worker's compute path (``ShardRuntime``).
     """
     faults = faults if faults is not None else NoFaults()
-    runtime = ShardRuntime(device, backend)
+    runtime = ShardRuntime(device, backend, host_results)
     cancelled: set[int] = set()
     pending: list = []
     tasks_done = 0
@@ -365,3 +387,78 @@ def serve_loop(worker_id: int, inbox: "queue.Queue", emit, faults=None,
                 worker=worker_id, round=task.round,
                 task_row=task.task_row, plan=task.plan,
                 ok=False, error=repr(e)))
+
+
+# ---------------------------------------------------------------------------
+# Standalone remote worker (multi-host tcp deployment)
+# ---------------------------------------------------------------------------
+
+
+def run_remote_worker(host: str, port: int, worker_id: int, *,
+                      heartbeat_s: float = 0.25, max_dial_s: float = 30.0,
+                      device="cuda") -> str:
+    """Join a tcp fleet on another host: prepare the device, dial,
+    hello-handshake, download shards, heartbeat, serve until the
+    coordinator stops us.  Returns the backend it computed with.
+
+    The whole protocol is the tcp transport's worker child -- a remote
+    device and a locally-spawned one are indistinguishable to the
+    coordinator, and a worker dialing into an already-*running* fleet
+    is caught up with every attached plan's shards (live join).  The
+    wire does not carry the compute backend: it follows ``device``
+    (``worker_backend``), so a coordinator built with
+    ``backend="cuda"`` must be joined by card workers.  Dialing retries
+    with exponential backoff + deterministic jitter for up to
+    ``max_dial_s`` seconds, so devices may come up before the
+    coordinator binds its port without hammering it at a fixed rate."""
+    from .retry import RetryPolicy  # noqa: PLC0415
+    from .transport.tcp import _tcp_worker_main  # noqa: PLC0415
+
+    backend = worker_backend(device)
+    dev = str(torch.device(device))
+    prepare_device(dev, backend)
+    policy = RetryPolicy(max_attempts=0, base_s=0.1, max_backoff_s=2.0,
+                         seed=worker_id, total_timeout_s=max_dial_s)
+    policy.call(
+        lambda: _tcp_worker_main(host, port, worker_id,
+                                 NoFaults().to_spec(), heartbeat_s,
+                                 device=dev, backend=backend),
+        retry_on=(ConnectionError,))
+    return backend
+
+
+def main(argv=None) -> None:
+    import argparse  # noqa: PLC0415
+    import json  # noqa: PLC0415
+
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.cluster.worker",
+        description="Join a running tcp fleet as a remote edge worker.")
+    ap.add_argument("--connect", required=True, metavar="HOST:PORT",
+                    help="coordinator address (TcpTransport server)")
+    ap.add_argument("--id", type=int, required=True, dest="worker_id",
+                    help="worker id assigned by the fleet operator "
+                         "(must be unique and < the fleet's n_workers)")
+    ap.add_argument("--heartbeat", type=float, default=0.25,
+                    help="liveness beat interval in seconds")
+    ap.add_argument("--max-dial-s", type=float, default=30.0,
+                    dest="max_dial_s",
+                    help="cap on total dial time: the initial connect "
+                         "retries with exponential backoff + jitter "
+                         "until this many seconds have passed")
+    ap.add_argument("--device", default="cuda",
+                    help="what this worker computes on: the card "
+                         "(default, bcsr_matmul) or 'cpu' (host BSR)")
+    args = ap.parse_args(argv)
+    host, _, port = args.connect.rpartition(":")
+    if not host or not port.isdigit():
+        ap.error(f"--connect wants HOST:PORT, got {args.connect!r}")
+    backend = run_remote_worker(host, int(port), args.worker_id,
+                                heartbeat_s=args.heartbeat,
+                                max_dial_s=args.max_dial_s,
+                                device=args.device)
+    print(json.dumps(worker_report(args.device, backend)), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -367,8 +367,9 @@ def test_race_mode_accounting_and_shutdown(operand):
 
 
 def test_transports_and_worker_placement(operand, monkeypatch):
-    """tcp and shm are not ported yet; a card plan needs card workers and
-    a host plan host workers; a fleet with no device asks for the card."""
+    """Every transport resolves, tcp and shm included; a card plan needs
+    card workers and a host plan host workers; a fleet with no device
+    asks for the card."""
     A, _ = operand
     assert resolve_transport(None) == "memory"
     assert resolve_transport("pipe") == "pipe"
@@ -376,8 +377,8 @@ def test_transports_and_worker_placement(operand, monkeypatch):
     assert resolve_transport(None) == "pipe"
     assert resolve_transport("memory") == "memory"
     for name in ("tcp", "shm"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            make_transport(name, 2)
+        assert resolve_transport(name) == name
+        assert make_transport(name, 2).name == name
     for name in ("carrier-pigeon", "process"):
         with pytest.raises(ValueError, match="transport"):
             resolve_transport(name)

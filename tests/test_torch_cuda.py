@@ -552,3 +552,49 @@ def test_memory_cluster_matvec_on_the_card(hopper):
             close(got, plan.matvec(x.to(hopper), done))
         np.testing.assert_allclose(cl.matvec(x).cpu().numpy(),
                                    (x @ A).numpy(), rtol=5e-3, atol=5e-3)
+
+
+@pytest.mark.parametrize("transport", ["tcp", "shm"])
+def test_process_cluster_children_compute_on_the_card(hopper, transport):
+    """A card plan served by three spawned card children over tcp or
+    shm: each explicit mask is bitwise the in-process ``cuda`` plan (the
+    same kernel over the same 32x32 tiles); the parent launches one
+    ``decode_matmul`` and no ``bcsr_matmul`` per matvec, the children k
+    ``bcsr_matmul`` in all, by their own reports; shm leaves no
+    segment behind."""
+    import os
+
+    rng = np.random.default_rng(13)
+    A = torch.as_tensor(block_sparse(rng, 512, 288, 32, 32, 0.5))
+    x = torch.as_tensor(rng.standard_normal((2, 512)).astype(np.float32))
+    plan = compile_plan(A.to(hopper), scheme="proposed", n=6, s=2)
+    masks = []
+    for i in range(6):
+        done = np.ones(6, bool)
+        done[[i, (i + 3) % 6]] = False
+        masks.append(done)
+    with plan.to_cluster(3, transport=transport) as cl:
+        tr = cl.transport
+        assert (tr.device.type, tr.backend) == ("cuda", "cuda")
+        base = {w: r["launches"]["bcsr_matmul"]
+                for w, r in tr.reports().items()}
+        for done in masks:
+            before = launch_counts()
+            got = cl.matvec(x, done)
+            torch.cuda.synchronize()
+            after = launch_counts()
+            assert {k: after[k] - before[k] for k in after} == {
+                "bcsr_matmul": 0, "cyclic_encode": 0, "decode_matmul": 1}
+            assert (cl.last_report.deaths, cl.last_report.requeues) == (0, 0)
+            assert torch.equal(got, plan.matvec(x.to(hopper), done))
+        reports = tr.reports()
+        assert sum(r["launches"]["bcsr_matmul"] - base[w]
+                   for w, r in reports.items()) == plan.k * len(masks)
+        for w, r in reports.items():
+            assert r["pid"] == tr._procs[w].pid
+            assert r["device_name"] == torch.cuda.get_device_name(hopper)
+            assert r["memory_allocated"] > 0
+        prefix = getattr(tr, "prefix", None)
+    if prefix is not None:
+        assert not [e for e in os.listdir("/dev/shm")
+                    if e.startswith(prefix)]

@@ -229,6 +229,38 @@ def test_reencode_cut_follows_worker_capacities(operands):
                                    (xs[1] @ A).numpy(), **LOOSE)
 
 
+def test_add_worker_racing_close_fails_fast():
+    """A join whose registration reaches the fleet loop after close()
+    failed the waiters (the loop still running while the transport
+    shuts down) raises at once, instead of waiting out its timeout:
+    the chaos harness's controller can race a closing fleet so."""
+    fleet = CodedFleet(2, device="cpu")
+    closing, release = threading.Event(), threading.Event()
+    real_close, real_add = fleet.transport.close, fleet.transport.add_worker
+
+    def slow_close():
+        closing.set()
+        assert release.wait(30.0)
+        real_close()
+
+    def add_while_closing(worker=None):
+        w = real_add(worker)
+        threading.Thread(target=fleet.close, daemon=True).start()
+        assert closing.wait(30.0)       # fail_all ran, the loop still runs
+        return w
+
+    fleet.transport.close = slow_close
+    fleet.transport.add_worker = add_while_closing
+    t0 = time.perf_counter()
+    try:
+        with pytest.raises(RuntimeError, match="closed"):
+            fleet.add_worker(timeout=20.0)
+        assert time.perf_counter() - t0 < 10.0
+    finally:
+        release.set()
+    assert wait_until(lambda: not fleet._loop_thread.is_alive())
+
+
 def test_close_leaves_no_threads(operands):
     A, _, xs = operands
     before = set(threading.enumerate())

@@ -36,6 +36,10 @@ def test_import_leaves_jax_and_repro_unloaded():
         "repro_torch.serve, repro_torch.launch.serve\n"
         "import repro_torch.cluster, repro_torch.cluster.transport, "
         "repro_torch.api.fleet, repro_torch.obs, repro_torch._env\n"
+        "import repro_torch.cluster.transport.tcp, "
+        "repro_torch.cluster.transport.shm, repro_torch.cluster.chaos, "
+        "repro_torch.cluster.retry, repro_torch.obs.attrib, "
+        "repro_torch.obs.export, repro_torch.obs.__main__\n"
         "repro_torch.compile_plan\n"
         "repro_torch.configs.get_config('phi3-mini-3.8b')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
