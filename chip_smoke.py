@@ -88,10 +88,35 @@ Phases, one JSON line each:
      ``/dev/shm`` entry left after shutdown); ``run_chaos`` with card
      workers on ``memory`` at head width under the JAX package's storm
      and on ``tcp`` at the JAX package's geometry (seed 3), every
-     resolved value bitwise its replay.
+     resolved value bitwise its replay;
+  9. front -- the serve front door and autoscaling on the same head, one
+     line per sub-phase with its wall time, every fleet of card workers
+     (``memory`` unless said): the engine's router mode
+     (``CodedConfig(router=Router(), ...)``: the 5 masks and the
+     all-alive one bitwise the in-process engine, k ``bcsr_matmul`` + 1
+     ``decode_matmul`` a call; a second engine shares the endpoint, only
+     the owner's close unregisters it); two tenants' paused burst (weights
+     1:3) over two replicas, whose dispatch log must follow the stride;
+     an ``Autoscaler`` adding two replicas (no encode), draining back to
+     one and refused the last; one tenant's adaptive burst, whose width
+     must reach batches of 64 columns (``bcsr_matmul``'s wide layout),
+     then idle calls back to width 1, and static widths of 1 to 64 calls
+     in closed loops (calls/s, each call's submit-to-result latency, and
+     the worker task's ``bcsr_matmul`` at each N);
+     ``CodedFleet(grow_encodings=True)`` scaled from 6 to 8 (a larger
+     code, two ``cyclic_encode``, one per join, three masks bitwise the
+     chosen plan) and back (the first compile, bitwise); a
+     ``RemotePool`` whose ``--connect`` card processes dial a tcp
+     coordinator, a seventh provisioned and decommissioned, each report
+     naming the card; ``run_chaos`` with the autoscaler on.  The three
+     kernels are held against their plain versions at every plan the
+     grow and the chaos run re-encoded to.  Race-mode
+     rounds launch k to n ``bcsr_matmul`` (a cancel may land after a
+     worker started) and one ``decode_matmul`` per call; every routed
+     result is bitwise the in-process plan under its round's pattern.
 
 Launch counters are set to 0 just before each main path (mv, mm,
-serve, cluster, and each edge sub-phase) and read just after; a child
+serve, cluster, and each edge and front sub-phase) and read just after; a child
 process's launches come from its own report: every encode must have gone through
 ``cyclic_encode``, every worker product through ``bcsr_matmul`` (one
 launch per matvec and per matmat) and every decode through
@@ -108,13 +133,16 @@ this card, one ``ab`` line per run and a summary.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import hashlib
 import io
 import json
 import os
+import socket
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -124,7 +152,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 import repro_torch.obs.trace as trace_mod  # noqa: E402
-from repro_torch.api import compile_plan  # noqa: E402
+from repro_torch.api import CodedFleet, compile_plan  # noqa: E402
 from repro_torch.cluster import (  # noqa: E402
     ChaosEvent,
     StragglerFaults,
@@ -132,7 +160,12 @@ from repro_torch.cluster import (  # noqa: E402
     run_chaos,
     scripted_schedule,
 )
-from repro_torch.cluster.wire import PlanShard  # noqa: E402
+from repro_torch.cluster.fleet import wait_settled  # noqa: E402
+from repro_torch.cluster.wire import (  # noqa: E402
+    PlanShard,
+    plan_packed,
+    shard_plan,
+)
 from repro_torch.cluster.worker import CardTask  # noqa: E402
 from repro_torch.configs.base import CodedConfig  # noqa: E402
 from repro_torch.core.coded_matmul import split_block_columns  # noqa: E402
@@ -157,7 +190,14 @@ from repro_torch.models import build_model  # noqa: E402
 from repro_torch.obs import attribute  # noqa: E402
 from repro_torch.runtime import encode_blocks, support_tables  # noqa: E402
 from repro_torch.runtime.pack import unpack_coded_blocks  # noqa: E402
-from repro_torch.serve import ServeEngine  # noqa: E402
+from repro_torch.scale import (  # noqa: E402
+    Autoscaler,
+    ProvisionError,
+    QueueDepthPolicy,
+    RemotePool,
+    SchedulePolicy,
+)
+from repro_torch.serve import Router, ServeEngine  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 rate, f32 FFMA rate, and the
 # dense bf16 tensor-core rate, the least time a bf16 x bf16 product needs
@@ -1164,6 +1204,19 @@ def phase_serve(seed: int, dev, gen, arch: str = "phi3-mini-3.8b",
             "counts": counts, "p50": coded_p50}
 
 
+def encode_row(plan, case: str, reps: int = 3) -> dict:
+    """``cyclic_encode`` at a compiled plan's shapes: the encode of its
+    operand that the compile ran."""
+    dev = plan.device
+    R = mv_encoding_matrix(plan.scheme, plan.seed)
+    sup, coef = support_tables(plan.scheme.supports, R)
+    blocks = split_block_columns(plan._A, plan.scheme.k_A)
+    if blocks.stride(-1) != 1:          # a tied head: encode_blocks' copy
+        blocks = blocks.contiguous()
+    return check_encode(blocks, torch.as_tensor(sup, device=dev),
+                        torch.as_tensor(coef, device=dev), R, case, reps)
+
+
 def kernels_serve(serve: dict, reps: int) -> list[dict]:
     """The three kernels at the serve geometry: the head's encode at
     build, and one coded_logits call's product and decode."""
@@ -1171,17 +1224,8 @@ def kernels_serve(serve: dict, reps: int) -> list[dict]:
     plan = engine.coded
     ex = plan.executor
     dplan = ex.cache.plan(done)
-    rows = [check_bcsr_mv(plan, hidden, done, "serve", reps)]
-    head = engine.params["embed"].T if engine.cfg.tie_embeddings \
-        else engine.params["head"]
-    R = mv_encoding_matrix(plan.scheme, plan.seed)
-    sup, coef = support_tables(plan.scheme.supports, R)
-    blocks = split_block_columns(head, plan.scheme.k_A)
-    if blocks.stride(-1) != 1:          # a tied head: encode_blocks' copy
-        blocks = blocks.contiguous()
-    rows.append(check_encode(
-        blocks, torch.as_tensor(sup, device=head.device),
-        torch.as_tensor(coef, device=head.device), R, "serve", 3))
+    rows = [check_bcsr_mv(plan, hidden, done, "serve", reps),
+            encode_row(plan, "serve")]
     y = bcsr_matmul(ex.packed.a_data, ex.packed.a_idx, hidden.T.contiguous(),
                     dplan.rows_dev, mb=ex.packed.mb, counts=ex.packed.counts)
     rows.append(check_decode(dplan.hinv_dev,
@@ -1215,10 +1259,14 @@ def clean(where: str, reports) -> None:
                              f"suspected) {bad}")
 
 
-def card_workers(where: str, cl) -> None:
-    if cl.fleet.backend != "cuda" or cl.fleet.device.type != "cuda":
+def card_fleet(where: str, fleet) -> None:
+    if fleet.backend != "cuda" or fleet.device.type != "cuda":
         raise AssertionError(f"{where}: workers compute with "
-                             f"{cl.fleet.backend} on {cl.fleet.device}")
+                             f"{fleet.backend} on {fleet.device}")
+
+
+def card_workers(where: str, cl) -> None:
+    card_fleet(where, cl.fleet)
 
 
 def hold_parity(where: str, got, want, dtype, plan, done, ref, t, stored
@@ -1318,8 +1366,9 @@ def phase_cluster(seed: int, dev, gen, rng, serve: dict, t_dim: int = 8192,
                   cyclic_encode=1, decode_matmul=calls)
 
     # -- the kernels at the cluster's shapes, one cluster round traced -----
-    rows, decode_call = kernels_cluster(plan, hidden, masks[0],
-                                        cl.handle.shard_blobs[0], kernel_reps)
+    rows, decode_call = kernels_cluster(
+        plan, hidden, masks[0], PlanShard.decode(cl.handle.shard_blobs[0]),
+        kernel_reps)
     census("cluster coded_logits",
            lambda: engine.coded_logits(hidden, masks[0]), p50,
            {"bcsr_matmul": k, "cyclic_encode": 0, "decode_matmul": 1})
@@ -1477,21 +1526,20 @@ def phase_cluster(seed: int, dev, gen, rng, serve: dict, t_dim: int = 8192,
     return counts, rows, edge
 
 
-def kernels_cluster(plan, hidden, done, blob: bytes, reps: int
-                    ) -> tuple[list[dict], object]:
-    """bcsr_matmul on one card worker's task of the head (its re-tiled
-    f32 form, from the shard frame ``blob``) and the fleet's decode of
-    the head, each against its plain version.  -> (the rows, a call of
-    that decode's launch, for a later trace)."""
+def kernels_cluster(plan, hidden, done, shard: PlanShard, reps: int,
+                    case: str = "cluster") -> tuple[list[dict], object]:
+    """bcsr_matmul on one card worker's task of the plan (its re-tiled
+    f32 form, from ``shard``) and the fleet's decode of the plan, each
+    against its plain version.  -> (the rows, a call of that decode's
+    launch, for a later trace)."""
     dev = hidden.device
-    shard = PlanShard.decode(blob)
     task = CardTask(shard, shard.tasks[0], dev)
     packed = task.packed
     b = torch.zeros((shard.t_pad, hidden.shape[0]), device=dev)
     b[: shard.t] = hidden.T
     dense = unpack_coded_blocks(packed)[0].T.contiguous()     # (c, t)
     rows = [check_kernel(
-        "bcsr_matmul", "cluster",
+        "bcsr_matmul", case,
         lambda: bcsr_matmul(packed.a_data, packed.a_idx, b, mb=packed.mb,
                             counts=packed.counts),
         lambda: bcsr_matmul_plain(packed.a_data, packed.a_idx, b,
@@ -1508,10 +1556,19 @@ def kernels_cluster(plan, hidden, done, blob: bytes, reps: int
                     dplan.rows_dev, mb=ex.packed.mb, counts=ex.packed.counts)
     y = y.view(ex.k, ex.packed.c_pad, -1)[:, : shard.c_pad].contiguous()
     kw = {"c": ex.packed.c, "r": ex.r}
-    rows.append(check_decode(dplan.hinv_dev, y, "mv", reps, case="cluster",
+    rows.append(check_decode(dplan.hinv_dev, y, "mv", reps, case=case,
                              **kw))
     layout = prepare_decode(dplan.hinv_dev, y, "mv", **kw)
     return rows, lambda: launch_decode(layout, dplan.hinv_dev, y, None)
+
+
+def reencode_rows(plan, x, done, case: str, reps: int) -> list[dict]:
+    """The three kernels at the shapes a fleet re-encoded to: the
+    compile's encode, a card worker's task and the fleet's decode of a
+    round at ``x``'s width under ``done``."""
+    shard = shard_plan(plan, plan.n, packed=plan_packed(plan))[0]
+    rows, _ = kernels_cluster(plan, x, done, shard, reps, case)
+    return [encode_row(plan, case)] + rows
 
 
 # ---------------------------------------------------------------------------
@@ -1929,6 +1986,747 @@ def phase_edge(seed: int, dev, e: dict) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the serve front door and autoscaling on the card
+# ---------------------------------------------------------------------------
+
+# the fairness burst's tenants and weights, and its calls per tenant
+FRONT_WEIGHTS = {"free": 1.0, "pro": 3.0}
+FRONT_CALLS = 32
+# one tenant's adaptive burst (calls of two columns each)
+FRONT_BURST = 96
+# the router's static widths, in calls of two columns; the worker task's
+# bcsr_matmul is timed at these N.  Each width runs closed-loop windows
+# of FRONT_STATIC_ROUNDS full rounds' calls (at least
+# FRONT_STATIC_MIN_CALLS), with twice the width's calls in callers
+FRONT_STATIC = (1, 4, 16, 32, 64)
+FRONT_STATIC_ROUNDS = 32
+FRONT_STATIC_MIN_CALLS = 128
+FRONT_STATIC_WINDOWS = 2
+# how long a scaled fleet may take to settle on its new encoding (a
+# re-encode compiles the head on the card and re-ships its shards)
+SETTLE_S = 120.0
+
+
+def stride_order(weights: dict, log: list) -> list:
+    """The tenant each dispatch of ``log`` must go to under weighted-fair
+    stride with the batch widths it shows: the smallest pass among the
+    tenants with calls still queued (ties by name), each dispatch adding
+    its columns over the tenant's weight."""
+    left = {t: sum(e["calls"] for e in log if e["tenant"] == t)
+            for t in weights}
+    passes = {t: 0.0 for t in weights}
+    order = []
+    for e in log:
+        pick = min((t for t in weights if left[t] > 0),
+                   key=lambda t: (passes[t], t))
+        order.append(pick)
+        passes[pick] += e["cols"] / weights[pick]
+        left[e["tenant"]] -= e["calls"]
+    return order
+
+
+def routed_burst(router, endpoint: str, calls: list) -> dict:
+    """Queue ``calls`` ((tenant, x) pairs) on a paused router, resume,
+    wait for every result; -> the futures, the results, the burst's wall
+    seconds and each call's seconds from the resume to its result (how
+    far into the queue's drain it came, not a call's latency)."""
+    done_at: dict = {}
+    router.pause()
+    futs = [router.submit(endpoint, x, tenant=tenant) for tenant, x in calls]
+    for i, f in enumerate(futs):
+        f.add_done_callback(
+            lambda _f, i=i: done_at.setdefault(i, time.perf_counter()))
+    t0 = time.perf_counter()
+    router.resume()
+    outs = [f.result(300) for f in futs]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"futs": futs, "outs": outs, "wall_s": wall,
+            "drain_s": [done_at[i] - t0 for i in range(len(futs))]}
+
+
+def closed_loop(router, endpoint: str, xs: list, callers: int) -> dict:
+    """``callers`` threads, each submitting its next call as soon as its
+    last one returned, until ``xs`` is spent; -> the futures and results
+    in ``xs``' order, the window's wall seconds (first submit to the last
+    result on the device) and each call's latency: seconds from its
+    submit to its result (the decode enqueued on the stream)."""
+    futs, outs, lat = [None] * len(xs), [None] * len(xs), [0.0] * len(xs)
+    order = iter(range(len(xs)))
+    lock = threading.Lock()
+
+    def caller():
+        while True:
+            with lock:
+                i = next(order, None)
+            if i is None:
+                return
+            t = time.perf_counter()
+            futs[i] = router.submit(endpoint, xs[i], tenant="pro")
+            outs[i] = futs[i].result(300)
+            lat[i] = time.perf_counter() - t
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(callers) as pool:
+        for job in [pool.submit(caller) for _ in range(callers)]:
+            job.result()
+    torch.cuda.synchronize()
+    return {"futs": futs, "outs": outs, "lat_s": lat,
+            "wall_s": time.perf_counter() - t0}
+
+
+def race_rounds(where: str, futs, counts: dict, plan) -> int:
+    """Launches of race-mode rounds: per round each of the n live workers
+    may run its task before the cancel lands (k to n ``bcsr_matmul``),
+    and each call's slice one ``decode_matmul``.  -> the rounds."""
+    reports = list({id(f.report): f.report for f in futs}.values())
+    clean(where, reports)
+    rounds = len(reports)
+    expect_between(where, counts,
+                   bcsr_matmul=(plan.k * rounds, plan.n * rounds),
+                   cyclic_encode=(0, 0), decode_matmul=(len(futs),) * 2)
+    return rounds
+
+
+def replays_bitwise(where: str, plan, xs, burst: dict) -> None:
+    """Each routed result bitwise the in-process plan under its round's
+    observed pattern (taken after the launch window closed)."""
+    bad = [i for i, (x, f, out) in enumerate(zip(xs, burst["futs"],
+                                                burst["outs"]))
+           if not torch.equal(out, plan.matvec(x, f.report.pattern))]
+    if bad:
+        raise AssertionError(f"{where}: calls {bad} are not bitwise the "
+                             f"in-process plan under their pattern")
+
+
+def router_card_replicas(where: str, router, endpoint: str) -> None:
+    for r in router._endpoints[endpoint].replicas:
+        card_fleet(f"{where} (replica {r.index})", r.fleet)
+
+
+def width_rows(plan, hidden, blob: bytes, reps: int) -> list[dict]:
+    """One card worker's task of the head (its re-tiled f32 form) times
+    N operand columns, at each of the router's static widths: the
+    kernel's width curve, each row held against its plain version."""
+    dev = hidden.device
+    shard = PlanShard.decode(blob)
+    task = CardTask(shard, shard.tasks[0], dev)
+    packed = task.packed
+    dense = unpack_coded_blocks(packed)[0].T.contiguous()     # (c, t)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rows = []
+    for calls in FRONT_STATIC:
+        n_cols = 2 * calls
+        b = torch.zeros((shard.t_pad, n_cols), device=dev)
+        b[: shard.t] = torch.randn((shard.t, n_cols), generator=gen,
+                                   device=dev)
+        rows.append(check_kernel(
+            "bcsr_matmul", f"front N={n_cols}",
+            lambda b=b: bcsr_matmul(packed.a_data, packed.a_idx, b,
+                                    mb=packed.mb, counts=packed.counts),
+            lambda b=b: bcsr_matmul_plain(packed.a_data, packed.a_idx, b,
+                                          mb=packed.mb, counts=packed.counts),
+            lambda b=b: torch.matmul(dense, b),
+            dtype=torch.float32, nbytes=bcsr_bytes(packed, [0], b,
+                                                   packed.c_pad),
+            flops=bcsr_flops(packed, [0], n_cols),
+            flops_per_s=F32_FLOPS_PER_S, reps=reps, plain_reps=3,
+            extra_ms={}))
+    return rows
+
+
+def front_context(seed: int, dev, e: dict) -> dict:
+    """What the front sub-phases share: the edge phase's head, its masks
+    with the all-alive one, the in-process engine's results for them, and
+    a seeded source of decode-step operands on the card."""
+    plan, hidden, engine0 = e["plan"], e["hidden"], e["engine"]
+    n = plan.n
+    all_alive = np.ones(n, bool)
+    gen = torch.Generator(device=dev).manual_seed(seed + 9)
+    d = e["d"]
+
+    def xs_of(count):
+        return [torch.randn((2, d), generator=gen, device=dev)
+                for _ in range(count)]
+
+    return {"plan": plan, "hidden": hidden, "ref": e["ref"], "e": e,
+            "n": n, "k": plan.k, "d": d, "vocab": engine0.cfg.vocab,
+            "seed": seed, "dev": dev, "all_alive": all_alive,
+            "masks": list(e["masks"]) + [all_alive],
+            "wants": list(e["wants"]) + [engine0.coded_logits(hidden,
+                                                              all_alive)],
+            "xs_of": xs_of, "cfg": engine0.cfg, "model": engine0.model,
+            "params": engine0.params, "engine0": engine0}
+
+
+def front_engine(c: dict):
+    """(a) The engine's router mode: an engine registers its endpoint and
+    serves the head through it, a second engine shares it."""
+    plan, hidden, ref, e = c["plan"], c["hidden"], c["ref"], c["e"]
+    n, k, d, masks, wants = c["n"], c["k"], c["d"], c["masks"], c["wants"]
+    cfg, model, params = c["cfg"], c["model"], c["params"]
+    engine0 = c["engine0"]
+    totals = []
+    t_sub = time.perf_counter()
+    router = Router()
+    try:
+        reset_launch_counts()
+
+        def routed_engine(tenant):
+            return ServeEngine(
+                model, params, cfg, batch_size=engine0.batch_size,
+                max_len=engine0.max_len, coded=CodedConfig(
+                    enabled=True, n_workers=6, stragglers=2,
+                    scheme="proposed", router=router, endpoint="lm-head",
+                    tenant=tenant, cluster_workers=6, transport="memory"))
+
+        t0 = time.perf_counter()
+        engine = routed_engine("pro")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        expect_counts("router engine build", launch_counts(), bcsr_matmul=0,
+                      cyclic_encode=1, decode_matmul=0)
+        if not (engine._owns_endpoint and router.has_endpoint("lm-head")):
+            raise AssertionError("router engine: endpoint not registered")
+        router_card_replicas("router engine", router, "lm-head")
+        checks = []
+        for done, want in zip(masks, wants):
+            before = launch_counts()
+            got = engine.coded_logits(hidden, done)
+            torch.cuda.synchronize()
+            # one task per row the mask admits: k, or n for all alive
+            expect_counts("one routed coded_logits", launched_since(before),
+                          bcsr_matmul=int(done.sum()), cyclic_encode=0,
+                          decode_matmul=1)
+            row = hold_parity("router engine", got, want, e["dtype"], plan,
+                              done, ref, d, e["stored"])
+            if not row["bitwise_in_process"]:
+                raise AssertionError(f"router engine: not bitwise the "
+                                     f"in-process engine: {row}")
+            checks.append(row)
+        a_counts = launch_counts()
+        # a second engine on the now registered endpoint shares it
+        shared = routed_engine("free")
+        got = shared.coded_logits(hidden, masks[0])
+        torch.cuda.synchronize()
+        if shared._owns_endpoint or not torch.equal(got, wants[0]):
+            raise AssertionError("router engine: the second engine does not "
+                                 "share the endpoint bitwise")
+        tenants = {t: v["counters"] for t, v in router.metrics()[
+            "endpoints"]["lm-head"]["tenants"].items()}
+        shared.close()
+        kept = router.has_endpoint("lm-head")
+        engine.close()
+        if not kept or router.has_endpoint("lm-head"):
+            raise AssertionError(f"router engine: endpoint kept after the "
+                                 f"shared close {kept}, after the owner's "
+                                 f"{router.has_endpoint('lm-head')}")
+        shared_counts = launch_counts()
+    finally:
+        router.close()
+    expect_counts("router engines", shared_counts,
+                  bcsr_matmul=sum(int(m.sum()) for m in masks[:1] + masks),
+                  cyclic_encode=2, decode_matmul=len(masks) + 1)
+    totals.append(shared_counts)
+    emit("front", case="router-engine", endpoint="lm-head", tenant="pro",
+         transport="memory", workers=6, build_s=build_s, patterns=checks,
+         launches_owner=a_counts, launches=shared_counts, tenants=tenants,
+         wall_s=time.perf_counter() - t_sub)
+    return totals
+
+
+def front_replicas(c: dict):
+    """(b) Two tenants' paused burst over two replicas, then (e) an
+    ``Autoscaler`` scaling the replicas up and back to one."""
+    plan, xs_of = c["plan"], c["xs_of"]
+    totals = []
+    t_sub = time.perf_counter()
+    router = Router()
+    try:
+        t0 = time.perf_counter()
+        router.register("head", plan, replicas=2, n_workers=6,
+                        transport="memory")
+        register_s = time.perf_counter() - t0
+        router_card_replicas("router fair", router, "head")
+        for name, w in FRONT_WEIGHTS.items():
+            router.set_tenant(name, weight=w)
+        xs = xs_of(2 * FRONT_CALLS)
+        calls = [(t, xs[j * 2 + i]) for j in range(FRONT_CALLS)
+                 for i, t in enumerate(FRONT_WEIGHTS)]
+        reset_launch_counts()
+        burst = routed_burst(router, "head", calls)
+        b_counts = launch_counts()
+        rounds = race_rounds("router fair", burst["futs"], b_counts, plan)
+        log = router.dispatch_log("head")
+        order = stride_order(FRONT_WEIGHTS, log)
+        if [e_["tenant"] for e_ in log] != order:
+            raise AssertionError(f"router fair: dispatch order "
+                                 f"{[e_['tenant'] for e_ in log]}, stride "
+                                 f"{order}")
+        share, left = {t: 0 for t in FRONT_WEIGHTS}, dict.fromkeys(
+            FRONT_WEIGHTS, FRONT_CALLS)
+        for e_ in log:
+            if min(left.values()) <= 0:
+                break
+            share[e_["tenant"]] += e_["cols"]
+            left[e_["tenant"]] -= e_["calls"]
+        used = sorted({e_["replica"] for e_ in log})
+        if used != [0, 1]:
+            raise AssertionError(f"router fair: replicas used {used}")
+        replays_bitwise("router fair", plan, [x for _, x in calls], burst)
+        totals.append(b_counts)
+        emit("front", case="router-fair", weights=FRONT_WEIGHTS,
+             calls_per_tenant=FRONT_CALLS, cols_per_call=2,
+             register_s=register_s, replicas_used=used,
+             dispatch=[[e_["tenant"], e_["calls"], e_["cols"], e_["width"],
+                        e_["replica"]] for e_ in log],
+             contended_cols=share, rounds=rounds, burst_wall_s=burst["wall_s"],
+             drain_p50_s=float(np.median(burst["drain_s"])),
+             launches=b_counts,
+             wall_s=time.perf_counter() - t_sub)
+
+        # -- (e) the router's replicas scaled by an Autoscaler -------------
+        t_sub = time.perf_counter()
+        scaler = Autoscaler(router, endpoint="head", n_workers=6,
+                            transport="memory",
+                            policy=QueueDepthPolicy(high=8, low=1),
+                            min_members=1, max_members=4, cooldown_s=0.0)
+        xs = xs_of(FRONT_CALLS)
+        router.pause()
+        futs = [router.submit("head", x, tenant="pro") for x in xs]
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        up = scaler.step(now=0.0)
+        up_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        expect_counts("scale replicas up", launch_counts(), bcsr_matmul=0,
+                      cyclic_encode=0, decode_matmul=0)
+        if (up.action, up.applied, scaler.pool.size()) != ("up", 2, 4):
+            raise AssertionError(f"scale replicas: {up}")
+        router_card_replicas("scale replicas", router, "head")
+        # batches of 4 calls, so the backlog spreads over the replicas
+        router.configure("head", adaptive=False, width=8)
+        router.resume()
+        outs = [f.result(300) for f in futs]
+        torch.cuda.synchronize()
+        e_counts = launch_counts()
+        e_rounds = race_rounds("scale replicas", futs, e_counts, plan)
+        served = sorted({e_["replica"] for e_ in router.dispatch_log("head")
+                         [len(log):]})
+        if served != [0, 1, 2, 3]:
+            raise AssertionError(f"scale replicas: served by {served}")
+        replays_bitwise("scale replicas", plan, xs,
+                        {"futs": futs, "outs": outs})
+        downs = [scaler.step(now=1.0 + i) for i in range(3)]
+        if [x.applied for x in downs] != [-1, -1, -1] or \
+                scaler.pool.size() != 1:
+            raise AssertionError(f"scale replicas down: {downs}")
+        hold = scaler.step(now=10.0)
+        try:
+            scaler.pool.decommission(scaler.pool.members()[0])
+            refused = None
+        except ProvisionError as err:
+            refused = str(err)
+        if refused is None or "last live replica" not in refused:
+            raise AssertionError(f"scale replicas: the last replica was "
+                                 f"not protected: {refused}")
+        scaler.close()
+        totals.append(e_counts)
+        emit("front", case="scale-replicas", backlog_calls=len(xs),
+             up_s=up_s, decisions=scaler.decision_log(), hold=hold.reason,
+             replicas_served=served, rounds=e_rounds, refused=refused,
+             launches=e_counts, wall_s=time.perf_counter() - t_sub)
+    finally:
+        router.close()
+    return totals
+
+
+def front_width(c: dict):
+    """(c) One tenant's adaptive burst, idle calls, the static widths, and
+    the worker task's ``bcsr_matmul`` at each static width."""
+    plan, hidden, xs_of = c["plan"], c["hidden"], c["xs_of"]
+    n, k = c["n"], c["k"]
+    totals = []
+    t_sub = time.perf_counter()
+    router = Router()
+    try:
+        router.register("head", plan, replicas=1, n_workers=6,
+                        transport="memory")
+        router_card_replicas("router width", router, "head")
+        h0 = router._endpoints["head"].replicas[0].handle
+        xs = xs_of(FRONT_BURST)
+        reset_launch_counts()
+        burst = routed_burst(router, "head", [("pro", x) for x in xs])
+        c_counts = launch_counts()
+        rounds = race_rounds("router width", burst["futs"], c_counts, plan)
+        log = router.dispatch_log("head")
+        widest = max(e_["cols"] for e_ in log)
+        if widest < 64:
+            raise AssertionError(f"router width: widest batch {widest} "
+                                 f"columns: {log}")
+        round_cols = sorted({id(f.report): 2 * f.report.calls
+                             for f in burst["futs"]}.values())
+        replays_bitwise("router width", plan, xs, burst)
+        totals.append(c_counts)
+        idle = []
+        reset_launch_counts()
+        for _ in range(16):
+            router.call("head", xs[0], tenant="pro")
+            idle.append(router.metrics()["endpoints"]["head"]["width"])
+            if idle[-1] == 1:
+                break
+        torch.cuda.synchronize()
+        idle_counts = launch_counts()
+        expect_between("router width idle", idle_counts,
+                       bcsr_matmul=(k * len(idle), n * len(idle)),
+                       cyclic_encode=(0, 0),
+                       decode_matmul=(len(idle),) * 2)
+        if idle[-1] != 1:
+            raise AssertionError(f"router width: idle widths {idle}")
+        totals.append(idle_counts)
+        emit("front", case="router-width", mode="adaptive",
+             calls=FRONT_BURST, cols=2 * FRONT_BURST,
+             dispatch=[[e_["calls"], e_["cols"], e_["width"]] for e_ in log],
+             widest_cols=widest, round_cols=round_cols, rounds=rounds,
+             burst_wall_s=burst["wall_s"], idle_widths=idle,
+             launches=c_counts, idle_launches=idle_counts,
+             wall_s=time.perf_counter() - t_sub)
+        static = []
+        for calls in FRONT_STATIC:
+            t_sub = time.perf_counter()
+            router.configure("head", adaptive=False, width=2 * calls)
+            n_calls = max(FRONT_STATIC_MIN_CALLS, FRONT_STATIC_ROUNDS * calls)
+            rates, p50s, p99s, batches, rounds = [], [], [], [], []
+            for _ in range(FRONT_STATIC_WINDOWS):
+                xs = xs_of(n_calls)
+                n_log = len(router.dispatch_log("head"))
+                reset_launch_counts()
+                run = closed_loop(router, "head", xs, 2 * calls)
+                s_counts = launch_counts()
+                rounds.append(race_rounds(f"router width {calls}",
+                                          run["futs"], s_counts, plan))
+                batches += [e_["calls"] for e_ in
+                            router.dispatch_log("head")[n_log:]]
+                replays_bitwise(f"router width {calls}", plan, xs, run)
+                totals.append(s_counts)
+                rates.append(n_calls / run["wall_s"])
+                p50s.append(float(np.median(run["lat_s"])) * 1e3)
+                p99s.append(float(np.percentile(run["lat_s"], 99)) * 1e3)
+                del xs, run
+            row = {"width_calls": calls, "width_cols": 2 * calls,
+                   "callers": 2 * calls, "calls": n_calls,
+                   "windows": FRONT_STATIC_WINDOWS, "rounds": rounds,
+                   "batches": len(batches),
+                   "mean_batch_calls": float(np.mean(batches)),
+                   "max_batch_calls": max(batches),
+                   "calls_per_s": float(np.median(rates)),
+                   "calls_per_s_each": rates,
+                   "lat_p50_ms": float(np.median(p50s)),
+                   "lat_p50_ms_each": p50s, "lat_p99_ms_each": p99s,
+                   "launches_last": s_counts}
+            static.append(row)
+            emit("front", case="router-width", mode="static", **row,
+                 wall_s=time.perf_counter() - t_sub)
+        blob = h0.shard_blobs[0]
+    finally:
+        router.close()
+    curve = width_rows(plan, hidden, blob, reps=50)
+    return totals, static, curve
+
+
+def front_grow(c: dict):
+    """(d) ``CodedFleet(grow_encodings=True)`` scaled from n to n + 2 and
+    back.  -> (launches, the kernel rows at each re-encoded plan's
+    shapes)."""
+    plan, hidden, ref, e = c["plan"], c["hidden"], c["ref"], c["e"]
+    n, k, d, vocab = c["n"], c["k"], c["d"], c["vocab"]
+    seed, dev, wants = c["seed"], c["dev"], c["wants"]
+    all_alive = c["all_alive"]
+    totals = []
+    t_sub = time.perf_counter()
+    with CodedFleet(n, device=dev, backend=plan.backend,
+                    grow_encodings=True) as fleet:
+        card_fleet("scale grow", fleet)
+        h = fleet.attach(plan)
+        ps = h._ps
+        first = h.matvec(hidden, all_alive)
+        if not torch.equal(first, wants[-1]):
+            raise AssertionError("scale grow: not bitwise before growth")
+        scaler = Autoscaler(fleet, policy=SchedulePolicy(
+            [(0, n), (1, n + 2), (3, n)]), min_members=2,
+                            max_members=n + 4, cooldown_s=0.0)
+        scaler.step(now=0.0)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        up = scaler.step(now=2.0)
+        wait_settled(h, n + 2, SETTLE_S)
+        torch.cuda.synchronize()
+        grow_s = time.perf_counter() - t0
+        grow_counts = launch_counts()
+        grown = h.plan
+        if (up.action, up.applied) != ("up", 2) or not (
+                grown.n > n and grown.k > k and grown.s >= plan.s):
+            raise AssertionError(f"scale grow: {up}, grown (n, k, s) = "
+                                 f"{(grown.n, grown.k, grown.s)}")
+        # two joins: one re-encode and one compile each
+        expect_counts("scale grow up", grow_counts, bcsr_matmul=0,
+                      cyclic_encode=2, decode_matmul=0)
+        compiles = len(ps._plan_cache)
+        grid, grid_counts = [], []
+        rng = np.random.default_rng(seed + 9)
+        for _ in range(3):
+            done = np.ones(grown.n, bool)
+            done[rng.choice(grown.n, size=grown.s, replace=False)] = False
+            before = launch_counts()
+            got = h.matvec(hidden, done)
+            torch.cuda.synchronize()
+            grid_counts.append(launched_since(before))
+            expect_counts("one grown matvec", grid_counts[-1],
+                          bcsr_matmul=grown.k, cyclic_encode=0,
+                          decode_matmul=1)
+            want = grown.matvec(hidden, done)
+            row = check_decoded("scale grow", e["dtype"], grown, done, got,
+                                ref, d, lambda rows: mv_stored_decode(
+                                    grown, rows, hidden, vocab))
+            row["bitwise_in_process"] = bool(torch.equal(got, want))
+            if not row["bitwise_in_process"]:
+                raise AssertionError(f"scale grow: not bitwise the grown "
+                                     f"plan in process: {row}")
+            grid.append(row)
+        totals += [grow_counts, *grid_counts]
+        reset_launch_counts()
+        scaler.step(now=3.0)
+        wait_settled(h, n + 1, SETTLE_S)
+        torch.cuda.synchronize()
+        down_counts = launch_counts()
+        # one re-encode: the 7-worker compile of the way up, or a new
+        # one where the measured rates cut the roster unevenly
+        expect_between("scale grow down to 7", down_counts,
+                       bcsr_matmul=(0, 0), cyclic_encode=(0, 1),
+                       decode_matmul=(0, 0))
+        totals.append(down_counts)
+        reset_launch_counts()
+        last = scaler.step(now=3.5)
+        wait_settled(h, n, SETTLE_S)
+        back = h.matvec(hidden, all_alive)
+        torch.cuda.synchronize()
+        back_counts = launch_counts()
+        expect_counts("scale grow back to 6", back_counts, bcsr_matmul=n,
+                      cyclic_encode=0, decode_matmul=1)
+        if last.applied != -1 or h.plan is not plan or \
+                not torch.equal(back, first):
+            raise AssertionError("scale grow: the return to 6 is not the "
+                                 "first compile, bitwise")
+        totals.append(back_counts)
+        scaler.close()
+        decisions = scaler.decision_log()
+        encoded = list(ps._plan_cache.values())
+    rows = []
+    for p in encoded:                   # every plan a re-encode compiled
+        rows += reencode_rows(p, hidden,
+                              straggler_masks(rng, p.n, p.s, 1)[0],
+                              f"grow n={p.n} k={p.k}", reps=20)
+    emit("front", case="scale-grow", grown={"n": grown.n, "k": grown.k,
+                                            "s": grown.s,
+                                            "scheme": grown.scheme.name},
+         compiles_up=compiles, compiles=len(ps._plan_cache), grow_s=grow_s,
+         patterns=grid, decisions=decisions, launches_up=grow_counts,
+         launches_down=down_counts, launches_back=back_counts,
+         wall_s=time.perf_counter() - t_sub)
+    return totals, rows
+
+
+def front_remote(c: dict):
+    """(f) A ``RemotePool`` of ``--connect`` card processes dialing a tcp
+    coordinator."""
+    plan, hidden, ref, e = c["plan"], c["hidden"], c["ref"], c["e"]
+    n, d, dev, masks, wants = c["n"], c["d"], c["dev"], c["masks"], c["wants"]
+    totals = []
+    t_sub = time.perf_counter()
+    probe = socket.socket()
+    probe.bind(("127.0.0.1", 0))
+    port = probe.getsockname()[1]
+    probe.close()
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    procs: dict = {}
+
+    def launch(worker_id, port_):
+        # on the card: the worker's default device
+        procs[worker_id] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.cluster.worker",
+             "--connect", f"127.0.0.1:{port_}", "--id", str(worker_id)],
+            env=env, stdout=subprocess.PIPE, text=True)
+
+    for w in range(n):
+        launch(w, port)
+    served: list = []
+    reports: dict = {}
+    reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        fleet = CodedFleet(n, transport="tcp", device=dev,
+                           transport_opts={"spawn": False, "port": port})
+        try:
+            dial_s = time.perf_counter() - t0
+            card_fleet("remote pool", fleet)
+            h = fleet.attach(plan)
+            attach_s = time.perf_counter() - t0 - dial_s
+            f_checks = []
+
+            def remote_round(done, want):
+                got = h.matvec(hidden, done)
+                torch.cuda.synchronize()
+                served.append(sum(h.last_report.completed_per_worker
+                                  .values()))
+                row = hold_parity("remote pool", got, want, e["dtype"], plan,
+                                  done, ref, d, e["stored"])
+                if not row["bitwise_in_process"]:
+                    raise AssertionError(f"remote pool: not bitwise: {row}")
+                f_checks.append(row)
+
+            for done, want in zip(masks, wants):
+                remote_round(done, want)
+            pool = RemotePool(fleet, launch)
+            t0 = time.perf_counter()
+            joiner = pool.provision()
+            provision_s = time.perf_counter() - t0
+            if joiner != n or pool.size() != n + 1:
+                raise AssertionError(f"remote pool: joined {joiner}, size "
+                                     f"{pool.size()}")
+            for done, want in zip(masks, wants):
+                remote_round(done, want)
+            pool.decommission(joiner)
+            if pool.size() != n:
+                raise AssertionError(f"remote pool: size {pool.size()} after "
+                                     f"the decommission")
+            remote_round(masks[-1], wants[-1])
+            clean("remote pool", h.reports)
+        finally:
+            fleet.close()
+        for w, p in procs.items():
+            out, _ = p.communicate(timeout=60)
+            reports[w] = json.loads(out.strip().splitlines()[-1])
+            reports[w]["returncode"] = p.returncode
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    torch.cuda.synchronize()
+    f_counts = launch_counts()
+    card = torch.cuda.get_device_name(0)
+    bad = [w for w, r in reports.items()
+           if r["returncode"] != 0 or r["backend"] != fleet.backend
+           or r["device_name"] != card]
+    if sorted(reports) != list(range(n + 1)) or bad:
+        raise AssertionError(f"remote pool workers {bad}: {reports}")
+    f_child = {name: sum(r["launches"][name] for r in reports.values())
+               for name in SOURCES}
+    expect_counts("remote pool (parent)", f_counts, bcsr_matmul=0,
+                  cyclic_encode=0, decode_matmul=len(served))
+    expect_counts("remote pool (workers)", f_child, bcsr_matmul=sum(served),
+                  cyclic_encode=0, decode_matmul=0)
+    totals += [f_counts, f_child]
+    emit("front", case="scale-remote", transport="tcp", port_dialed=port,
+         dial_s=dial_s, attach_s=attach_s, provision_s=provision_s,
+         joiner=joiner, patterns=f_checks, served_per_round=served,
+         workers={w: {k_: r[k_] for k_ in ("pid", "device_name", "launches")}
+                  for w, r in reports.items()},
+         launches=f_counts, worker_launches=f_child,
+         wall_s=time.perf_counter() - t_sub)
+    return totals
+
+
+def chaos_rows(res, t: int, r: int, dev, reps: int) -> list[dict]:
+    """The three kernels at each shape a chaos run's fleet re-encoded to
+    (its event log: n, k and the capacities of an uneven cut), each plan
+    compiled on ``run_chaos``'s operand, rebuilt from the run's seed."""
+    shapes = sorted({(ev["n"], ev["k"], tuple(ev["capacities"] or ()))
+                     for ev in res.events if ev["kind"] == "reencode"})
+    rng = np.random.default_rng(res.seed)
+    mask = rng.random((t // 8, r // 8)) >= 0.9
+    A = torch.from_numpy((rng.standard_normal((t, r)) * np.kron(
+        mask, np.ones((8, 8)))).astype(np.float32)).to(dev)
+    x = torch.from_numpy(rng.standard_normal((1, t)).astype(np.float32)
+                         ).to(dev)
+    rows = []
+    for n_, k_, caps in shapes:
+        scheme = (dict(scheme="proposed-hetero", capacities=list(caps))
+                  if caps else dict(scheme="proposed", n=n_))
+        p = compile_plan(A, **scheme, k_A=k_, backend="cuda", device=dev)
+        case = f"chaos n={n_} k={k_}" + (f" caps={list(caps)}" if caps
+                                         else "")
+        rows += reencode_rows(p, x, straggler_masks(rng, p.n, p.s, 1)[0],
+                              case, reps)
+        del p
+    return rows
+
+
+def front_chaos(c: dict):
+    """(g) ``run_chaos`` with the autoscaler on.  -> (launches, the kernel
+    rows at each shape its fleet re-encoded to)."""
+    plan, hidden, ref = c["plan"], c["hidden"], c["ref"]
+    n, seed, dev = c["n"], c["seed"], c["dev"]
+    totals = []
+    t_sub = time.perf_counter()
+    calls = 16
+    sched = scripted_schedule(seed=7, n=n, s=plan.s, duration=2.0,
+                              n_events=5)
+    reset_launch_counts()
+    res = run_chaos(sched, transport="memory", n=n, s=plan.s,
+                    t=hidden.shape[1], r=ref.shape[1], seed=7, calls=calls,
+                    spacing_s=0.1, warmup_s=10.0, device=dev,
+                    autoscale={"policy": SchedulePolicy([(0, 6), (0.5, 8),
+                                                         (1.5, 6)]),
+                               "min_members": 2, "max_members": 10,
+                               "interval_s": 0.1, "cooldown_s": 0.2})
+    torch.cuda.synchronize()
+    g_counts = launch_counts()
+    chaos = check_chaos("chaos autoscale", res, calls)
+    resolved = calls - chaos["futures"]["failed"]
+    actions = [x["action"] for x in res.autoscale]
+    if "up" not in actions or "down" not in actions:
+        raise AssertionError(f"chaos autoscale: decisions {res.autoscale}")
+    expect_between("chaos autoscale", g_counts,
+                   bcsr_matmul=(calls + resolved + 1, None),
+                   cyclic_encode=(1, None),
+                   decode_matmul=(calls + 2 * resolved + 1,) * 2)
+    totals.append(g_counts)
+    emit("front", case="chaos-autoscale", result=chaos,
+         decisions=[x for x in res.autoscale if x["action"] != "hold"],
+         ups=actions.count("up"), downs=actions.count("down"),
+         launches=g_counts, shape=[hidden.shape[1], ref.shape[1]],
+         wall_s=time.perf_counter() - t_sub)
+    return totals, chaos_rows(res, hidden.shape[1], ref.shape[1], dev,
+                              reps=20)
+
+
+def phase_front(seed: int, dev, e: dict) -> tuple[dict, list]:
+    """The serve front door and autoscaling on the serve phase's head
+    (n=6, s=2), every fleet of card workers: (a) the engine's router mode;
+    (b) two tenants' paused burst over two replicas; (e) the router's
+    replicas scaled up and down by an ``Autoscaler``; (c) the adaptive
+    width across the kernel's narrow-to-wide switch, and the static
+    widths; (d) ``CodedFleet(grow_encodings=True)`` scaled up and back;
+    (f) ``RemotePool`` dialing ``--connect`` card workers into a tcp
+    coordinator; (g) ``run_chaos`` with the autoscaler on.  -> (the
+    path's launches, the remote workers' included; the kernel rows at the
+    width curve's, the grown plans' and the chaos re-encodes' shapes)."""
+    c = front_context(seed, dev, e)
+    torch.cuda.synchronize()
+    totals = front_engine(c) + front_replicas(c)
+    width_counts, static, rows = front_width(c)
+    grow_counts, grow_rows = front_grow(c)
+    totals += width_counts + grow_counts + front_remote(c)
+    chaos_counts, chaos_krows = front_chaos(c)
+    totals += chaos_counts
+    counts = add_counts(*totals)
+    emit("front", launches=counts, static_widths=static)
+    return counts, rows + grow_rows + chaos_krows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1983,6 +2781,9 @@ def main(argv=None) -> int:
     del serve
     torch.cuda.synchronize()
     edge_counts = phase_edge(args.seed, dev, edge)
+    torch.cuda.synchronize()
+    front_counts, front_rows = phase_front(args.seed, dev, edge)
+    rows += front_rows
     del edge
     torch.cuda.synchronize()
 
@@ -2006,7 +2807,7 @@ def main(argv=None) -> int:
             "replaces": replaces,
             "launches": (mv_counts[name] + mm_counts[name]
                          + serve_counts[name] + cluster_counts[name]
-                         + edge_counts[name]),
+                         + edge_counts[name] + front_counts[name]),
             "max_abs_err": main_row["max_abs_err"], "ms": main_row["ms"],
             "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],

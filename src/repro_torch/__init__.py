@@ -19,12 +19,16 @@ JAX package.  Exports are lazy, so ``import repro_torch`` stays cheap.
 from __future__ import annotations
 
 _API = (
-    "CodedPlan", "SchemeInfo", "block_zero_fraction", "choose_backend",
-    "compile_plan", "list_schemes", "make_scheme", "register_scheme",
-    "scheme_info", "scheme_names",
+    "CodedFleet", "CodedFuture", "CodedPlan", "PlanHandle", "SchemeInfo",
+    "block_zero_fraction", "choose_backend", "compile_plan", "list_schemes",
+    "make_scheme", "register_scheme", "scheme_info", "scheme_names",
 )
 
-__all__ = list(_API) + ["plan_from_reference_arrays"]
+_CLUSTER = ("ClusterPlan", "ClusterReport", "dumps_plan", "loads_plan")
+
+_SCALE = ("Autoscaler", "LocalPool", "RemotePool", "ReplicaPool")
+
+__all__ = list(_API + _CLUSTER + _SCALE) + ["plan_from_reference_arrays"]
 
 
 def __getattr__(name: str):
@@ -32,6 +36,14 @@ def __getattr__(name: str):
         from . import api
 
         return getattr(api, name)
+    if name in _CLUSTER:
+        from . import cluster
+
+        return getattr(cluster, name)
+    if name in _SCALE:
+        from . import scale
+
+        return getattr(scale, name)
     if name == "plan_from_reference_arrays":
         from .convert import plan_from_reference_arrays
 

@@ -50,6 +50,15 @@ def as_tensor(x, device: torch.device, dtype: torch.dtype | None = None
     return torch.as_tensor(arr, device=device, dtype=dtype)
 
 
+def host_f32(a) -> np.ndarray:
+    """An operand or a worker's array as a host f32 numpy array.  A CUDA
+    tensor costs one device-to-host copy, which synchronises with the
+    stream."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().to("cpu", torch.float32).numpy()
+    return np.asarray(a, np.float32)
+
+
 def host_mask(done) -> np.ndarray:
     """A done mask as a host bool array.  A CUDA mask costs one
     device-to-host copy, which synchronises with the stream."""

@@ -10,7 +10,10 @@ encodings (the reference's 14 names);
 ``backends`` -- automatic backend choice (``cuda`` on a CUDA device,
 else the block-density pick);
 ``plan``     -- ``compile_plan`` -> ``CodedPlan`` with ``matvec`` /
-``matmat`` / ``aggregate`` and a pre-warmed LRU decode cache.
+``matmat`` / ``aggregate`` and a pre-warmed LRU decode cache;
+``fleet``    -- ``CodedFleet`` shared-worker sessions: attach many
+plans to one persistent worker set, submit rounds as ``CodedFuture``s
+with in-flight pipelining and matvec microbatching.
 """
 
 from .backends import (  # noqa: F401
@@ -18,6 +21,12 @@ from .backends import (  # noqa: F401
     block_zero_fraction,
     choose_backend,
     density_crossover,
+)
+from .fleet import (  # noqa: F401
+    CodedFleet,
+    CodedFuture,
+    FleetDegraded,
+    PlanHandle,
 )
 from .plan import CodedPlan, compile_plan  # noqa: F401
 from .schemes import (  # noqa: F401

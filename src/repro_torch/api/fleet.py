@@ -42,9 +42,11 @@ EWMAs, resolution counters, worker capacities) -- degradation is
 visible to any caller, not only via exceptions.  Per-plan coalescing
 is dynamic: ``handle.set_microbatch_cols(cols)`` retargets the width
 cap live, and ``handle.submit_matvec_many(xs)`` packs an explicit
-group into exactly one round with per-call bitwise decode.  The JAX
-package's multi-tenant serve front door over fleet replicas
-(``repro.serve.Router``) is not ported yet.
+group into exactly one round with per-call bitwise decode.  The
+multi-tenant serve front door over fleet replicas is
+``repro_torch.serve.Router``, and ``repro_torch.scale`` grows and
+shrinks a fleet (``CodedFleet(grow_encodings=True)`` re-encodes a
+scale-up to a larger code) or a router's replica set.
 
 The implementation lives in ``repro_torch.cluster.fleet`` (it is cluster
 machinery: transports, wire plan routing, liveness); this module is

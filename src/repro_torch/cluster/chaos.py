@@ -195,6 +195,9 @@ class ChaosResult:
     schedule: list[dict] = field(default_factory=list)
     joiner_serving: bool | None = None
     final_plan: dict = field(default_factory=dict)
+    # decision log of the autoscaling controller, when one ran
+    # alongside the schedule (run_chaos(autoscale=...))
+    autoscale: list = field(default_factory=list)
 
     def counts(self) -> dict:
         c = {"clean": 0, "degraded": 0, "failed": 0}
@@ -287,15 +290,16 @@ def run_chaos(schedule: list[ChaosEvent], *, transport: str = "memory",
     device, host BSR workers on the CPU; the replay runs on the same
     plan, so "bitwise" compares like with like.
 
-    ``autoscale`` needs the autoscaling controller (``scale/*``), which
-    is not ported yet (ROADMAP.md §1): passing it raises.
+    ``autoscale`` (kwargs for ``repro_torch.scale.Autoscaler``) starts
+    an autoscaling controller against the fleet for the duration of the
+    schedule, so scripted faults and scaling decisions interleave -- a
+    kill can land mid scale-up, a join mid drain -- and the invariants
+    above must *still* hold.  The workers it adds compute where the
+    fleet's do.  The controller's decision log lands on
+    ``result.autoscale``.
     """
     from ..api import compile_plan  # noqa: PLC0415 - avoid cycle at import
 
-    if autoscale is not None:
-        raise NotImplementedError(
-            "run_chaos(autoscale=) needs the autoscaling controller "
-            "(scale/*), which is not ported yet (ROADMAP.md §1)")
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     mask = rng.random((t // 8, r // 8)) >= 0.9
@@ -325,10 +329,14 @@ def run_chaos(schedule: list[ChaosEvent], *, transport: str = "memory",
                        suspect_after=suspect_after,
                        max_inflight=1, microbatch=False,
                        min_workers=min_workers, device=dev)
+    scaler = None
     try:
         handle = fleet.attach(plan)
         original_pid = handle.plan_id
         handle.matvec(xs[0])                # warm the task tables
+        if autoscale is not None:
+            from ..scale import Autoscaler  # noqa: PLC0415 - avoid cycle
+            scaler = Autoscaler(fleet, **autoscale).start()
         ctl = threading.Thread(
             target=_controller, args=(fleet, schedule, epoch, stop, joined),
             name="chaos-controller", daemon=True)
@@ -415,6 +423,9 @@ def run_chaos(schedule: list[ChaosEvent], *, transport: str = "memory",
         result.events = list(fleet.event_log)
     finally:
         stop.set()
+        if scaler is not None:
+            scaler.close()
+            result.autoscale = scaler.decision_log()
         fleet.close()
     if verify:
         c = result.counts()

@@ -94,7 +94,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from .._device import as_tensor, host_mask, resolve_device
+from .._device import as_tensor, host_f32, host_mask, resolve_device
 from .._env import env_int
 from ..obs.attrib import attribute
 from ..obs.trace import default_tracer
@@ -206,13 +206,6 @@ def _independent_rows(G: np.ndarray, done_rows, k: int):
     return None
 
 
-def _host_f32(a) -> np.ndarray:
-    """An operand or a worker's array as a host f32 numpy array."""
-    if isinstance(a, torch.Tensor):
-        return a.detach().to("cpu", torch.float32).numpy()
-    return np.asarray(a, np.float32)
-
-
 def _leaves(tree):
     """The leaves of a dict / list / tuple tree, in a fixed order."""
     if isinstance(tree, dict):
@@ -238,6 +231,44 @@ def _rebuild(tree, leaves):
 def _on_card(plan) -> bool:
     """A card plan: served by card workers, decoded by ``decode_matmul``."""
     return plan.backend == "cuda"
+
+
+def plan_workers(plan) -> tuple[str, torch.device]:
+    """The workers a plan needs: (backend, device).  A card plan gets
+    card workers on its own device (the kernel's plain version when that
+    device is the CPU); any other plan gets host workers, whose bitwise
+    parity holds only on ``packed``."""
+    if _on_card(plan):
+        return "cuda", plan.device
+    return "packed", torch.device("cpu")
+
+
+def wait_settled(handle: "PlanHandle", n_shards: int,
+                 timeout: float = 30.0) -> float:
+    """Block until ``handle``'s plan is encoded for ``n_shards`` hosts
+    with no re-encode pending; -> the seconds waited.  A scale step or a
+    death re-encodes on the fleet's loop, so ``handle.plan`` read right
+    after it may still be the old plan; read from another thread, the
+    new shard count can even show before the new plan id is stored.  So
+    the state is read on the loop, where a re-encode runs whole within
+    one callback.  Raises ``TimeoutError`` when it does not settle."""
+    fleet, ps = handle.fleet, handle._ps
+    t0 = time.perf_counter()
+
+    def settled() -> bool:
+        fut = concurrent.futures.Future()
+        fleet._loop.call_soon_threadsafe(lambda: fut.set_result(
+            ps.n_shards == n_shards and not ps.pending_reencode))
+        return fut.result(timeout=max(timeout, 1.0))
+
+    while not settled():
+        if time.perf_counter() - t0 > timeout:
+            raise TimeoutError(
+                f"plan not settled on {n_shards} shards in {timeout} s "
+                f"(at {ps.n_shards}, re-encode pending: "
+                f"{ps.pending_reencode})")
+        time.sleep(0.02)
+    return time.perf_counter() - t0
 
 
 def _device_inverse(hinv, hinv_dev, device) -> torch.Tensor:
@@ -550,7 +581,8 @@ class CodedFleet:
                  queue_cap: int | None = None,
                  min_workers: int | None = None,
                  admission: str = "block", transport_opts=None,
-                 tracer=None, device=None, backend: str | None = None):
+                 tracer=None, device=None, backend: str | None = None,
+                 grow_encodings: bool = False):
         if admission not in ("block", "shed"):
             raise ValueError(f"admission must be 'block' or 'shed', "
                              f"got {admission!r}")
@@ -581,6 +613,14 @@ class CodedFleet:
         self.min_workers = min_workers if min_workers is not None \
             else default_min_workers()
         self.admission = admission
+        # Autoscaling (repro_torch.scale): by default a plan never grows
+        # past its attach-time shard count -- "full strength" is what
+        # you attached with.  With ``grow_encodings=True`` a roster that
+        # outgrows the plan re-encodes *upward*: ``n`` follows the live
+        # worker count while the absolute straggler budget ``s`` is
+        # preserved (``k`` grows), so each worker's ``omega/k`` share of
+        # the work shrinks -- scale-up buys capacity, not just spares.
+        self.grow_encodings = grow_encodings
         self.transport = make_transport(
             transport, n_workers, faults=faults, heartbeat_s=heartbeat_s,
             device=self.device, backend=self.backend,
@@ -863,7 +903,7 @@ class CodedFleet:
         same worker set."""
         if self._closed:
             raise RuntimeError("fleet has been closed")
-        want = "cuda" if _on_card(plan) else "packed"
+        want, _ = plan_workers(plan)
         if self.backend != want:
             # a card plan's workers never run on the host, and a host
             # plan keeps its bitwise parity only on host workers
@@ -1721,7 +1761,8 @@ class CodedFleet:
             if getattr(plan, "executor", None) is None \
                     or getattr(plan, "_A", None) is None:
                 continue                    # aggregation-only: nothing to cut
-            if ps.n_shards != min(m, ps.max_shards):
+            cap = m if self.grow_encodings else ps.max_shards
+            if ps.n_shards != min(m, cap):
                 ps.pending_reencode = True
         self._drain_reencodes()
 
@@ -1747,8 +1788,11 @@ class CodedFleet:
         ``(plan, cut_capacities)`` -- the compiled plan for the new
         ``(n', k')`` and the capacities the shard cut should follow
         (None for a uniform cut).  Shrinking, resilience goes before
-        availability: ``k`` is preserved whenever ``n' >= k``.  A plan
-        never grows past its attach-time shard count."""
+        availability: ``k`` is preserved whenever ``n' >= k``.  Growing
+        (``grow_encodings``), the absolute straggler budget ``s`` is
+        what's preserved and ``k`` expands with the roster, shrinking
+        every worker's ``omega/k`` share -- the capacity half of the
+        elastic story."""
         from ..api.plan import compile_plan  # noqa: PLC0415 - avoid cycle
         from ..api.schemes import make_scheme  # noqa: PLC0415
 
@@ -1806,7 +1850,8 @@ class CodedFleet:
         sees two encodings."""
         ps.pending_reencode = False
         live = self._live()
-        m = max(1, min(len(live), ps.max_shards))
+        cap = len(live) if self.grow_encodings else ps.max_shards
+        m = max(1, min(len(live), cap))
         hosts = live[:m]
         old_pid = ps.plan_id
         try:
@@ -2180,7 +2225,7 @@ class PlanHandle:
             raise ValueError(f"matvec needs an mv plan, got {ps.plan.kind}")
         if ps.packed is None:
             raise ValueError("aggregation-only plan: no shards to matvec")
-        x = _host_f32(x)
+        x = host_f32(x)
         squeeze = x.ndim == 1
         xb = x[None, :] if squeeze else x
         b = xb.shape[0]
@@ -2298,7 +2343,7 @@ class PlanHandle:
                                     device=dev),
                     blocks_b.to(torch.float32))
             # the tasks travel from the host
-            b_np = _host_f32(coded_b)
+            b_np = host_f32(coded_b)
             cb = b_np.shape[2]
             c.target, c.wait_all = self._target(done)
             pid = ps.plan_id
@@ -2378,7 +2423,7 @@ class PlanHandle:
             for i in range(n_leaves):
                 acc = None
                 for coef, r in zip(a, rows):
-                    term = coef * _host_f32(results[int(r)][f"leaf{i}"])
+                    term = coef * host_f32(results[int(r)][f"leaf{i}"])
                     acc = term if acc is None else acc + term
                 out_leaves.append(torch.from_numpy(
                     np.ascontiguousarray(acc)).to(plan.device))

@@ -71,9 +71,6 @@ class CodedConfig:
     # (repro_torch.api.backends); the REPRO_CODED_BACKEND env var overrides
     # everything, including auto.
     backend: str | None = None
-    # The port's ServeEngine serves the cluster and fleet modes below;
-    # the router mode raises NotImplementedError until serve/router.py
-    # is ported (ROADMAP.md §1 item 11).
     # serve the coded matmuls from real workers (repro_torch.cluster):
     # the plan is sharded once at engine build and every step dispatches
     # tasks + decodes from the fastest-k results; a card plan's workers
@@ -83,8 +80,8 @@ class CodedConfig:
     cluster: bool = False
     cluster_workers: int | None = None
     # cluster transport (repro_torch.cluster.transport): "memory"
-    # (in-process threads), "pipe" (spawned subprocesses); the JAX
-    # package's "tcp" and "shm" are not ported yet.  None = the
+    # (in-process threads), "pipe" (spawned subprocesses), "tcp"
+    # (sockets), "shm" (shared-memory payloads).  None = the
     # REPRO_CLUSTER_TRANSPORT env var, falling back to "memory".
     transport: str | None = None
     # shared fleet session (repro_torch.api.fleet.CodedFleet): when set, the
@@ -96,7 +93,7 @@ class CodedConfig:
     # consumers; whoever built the fleet closes it.  Overrides
     # cluster=/cluster_workers when set.
     fleet: object | None = None
-    # serve front door (repro.serve.Router): when set, the engine
+    # serve front door (repro_torch.serve.Router): when set, the engine
     # routes its coded head through router.submit(endpoint, ...,
     # tenant=tenant) -- per-tenant weighted-fair queueing, adaptive
     # microbatching, replica balancing.  If the endpoint is not yet

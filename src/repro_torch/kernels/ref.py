@@ -56,12 +56,18 @@ def bcsr_matmul_packed_ref(a_data: torch.Tensor, a_idx: torch.Tensor,
     if pad:
         bb = torch.nn.functional.pad(bb, (0, 0, 0, pad))
     n = bb.shape[2]
-    bblocks = bb.to(F32).reshape(bb.shape[0], -1, bk, n)   # (W, Kb, bk, N)
+    if n == 1:
+        # on the card a one-column product is a GEMV, which sums each
+        # output's terms as a tree; a zero second column keeps the GEMM,
+        # which sums them in order, as the kernel does at every N
+        # (scripts/order_probe.py)
+        bb = torch.nn.functional.pad(bb, (0, 1))
+    bblocks = bb.to(F32).reshape(bb.shape[0], -1, bk, bb.shape[2])
     wid = (workers.repeat_interleave(mb) if per_worker
            else torch.zeros_like(src))
-    gathered = bblocks[wid[:, None], a_idx]                  # (G, J, bk, N)
+    gathered = bblocks[wid[:, None], a_idx]              # (G, J, bk, N')
     out = torch.einsum("mjkc,mjkn->mcn", a_data.to(F32), gathered)
-    return out.reshape(-1, n)
+    return out[..., :n].contiguous().view(-1, n)
 
 
 # ---------------------------------------------------------------------------

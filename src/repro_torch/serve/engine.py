@@ -24,11 +24,13 @@ workers (``CodedPlan.to_cluster``: a card plan's workers run one
 ``bcsr_matmul`` per task and the round one ``decode_matmul``), and
 ``CodedConfig.fleet`` attaches it to an externally-owned
 ``CodedFleet``; in both the mask picks which workers' task rows a call
-may use (parity mode) and ``done=None`` races them.  The JAX package's
-router mode (``CodedConfig.router``) raises ``NotImplementedError``
-until ``serve/router.py`` is ported (ROADMAP.md §1 item 11).  Prefill
-and decode run eagerly under ``torch.inference_mode()`` where the
-reference jits them.
+may use (parity mode) and ``done=None`` races them.
+``CodedConfig.router`` serves the head through an endpoint of a
+``repro_torch.serve.Router`` under the engine's tenant: a missing one is
+registered on one owned replica fleet (``cluster_workers`` workers on
+``transport``, where the plan lives) and unregistered by ``close()``; a
+pre-registered one is shared and left running.  Prefill and decode run
+eagerly under ``torch.inference_mode()`` where the reference jits them.
 """
 
 from __future__ import annotations
@@ -75,7 +77,9 @@ class ServeEngine:
             else StragglerFaults(rng=self.rng)
         self.coded = None
         self.coded_cluster = None
+        self.coded_router = None
         self._owns_cluster = True
+        self._owns_endpoint = False
         if coded is not None and coded.enabled:
             if not scheme_info(coded.scheme, "mv").straggler_resilient:
                 # the engine samples a fresh random straggler set per
@@ -85,10 +89,6 @@ class ServeEngine:
                     f"scheme {coded.scheme!r} is not resilient to "
                     f"arbitrary straggler patterns; pick one of "
                     f"{scheme_names('mv', resilient_only=True)}")
-            if coded.router is not None:
-                raise NotImplementedError(
-                    "the coded head's router mode is not ported yet "
-                    "(serve/router.py, ROADMAP.md §1 item 11)")
             head = (params["embed"].T if cfg.tie_embeddings
                     else params["head"])
             self.coded = compile_plan(
@@ -96,7 +96,32 @@ class ServeEngine:
                 s=coded.stragglers, seed=coded.seed,
                 backend=coded.backend or "auto", device=model.device)
             self.s = coded.stragglers
-            if coded.fleet is not None:
+            if coded.router is not None:
+                # serve front door: submit through the router's named
+                # endpoint under this engine's tenant.  A missing
+                # endpoint is registered here (one owned replica) and
+                # unregistered on close(); a pre-registered one is
+                # shared infrastructure and left alone.
+                self.coded_router = coded.router
+                self._router_endpoint = coded.endpoint
+                self._router_tenant = coded.tenant
+                self._owns_endpoint = not coded.router.has_endpoint(
+                    coded.endpoint)
+                if self._owns_endpoint:
+                    try:
+                        coded.router.register(
+                            coded.endpoint, self.coded, replicas=1,
+                            n_workers=coded.cluster_workers,
+                            transport=coded.transport)
+                    except (ValueError, RuntimeError):
+                        # the has_endpoint/register pair is not atomic:
+                        # another engine may register the same endpoint
+                        # in between.  Losing that race is not an error
+                        # -- fall back to sharing the winner's endpoint
+                        if not coded.router.has_endpoint(coded.endpoint):
+                            raise
+                        self._owns_endpoint = False
+            elif coded.fleet is not None:
                 # shared session: attach to the externally-owned fleet
                 # (workers co-host other consumers' plans); close()
                 # detaches without tearing the fleet down
@@ -162,14 +187,20 @@ class ServeEngine:
         """Compute logits through the coded LM head (hidden (B, d)) under
         ``done``, or a fresh straggler mask when None.
 
-        In cluster and fleet mode the matvec is actually dispatched: the
-        mask picks which workers' task rows this step may use, and the
-        decode runs from their real, asynchronously-collected results.
+        In cluster, fleet and router mode the matvec is actually
+        dispatched: the mask picks which workers' task rows this step may
+        use, and the decode runs from their real, asynchronously-collected
+        results.
         """
         if self.coded is None:
             raise ValueError("engine built without coded config")
         hidden = as_tensor(hidden, self.coded.device)
         mask = done if done is not None else self._straggler_mask()
+        if self.coded_router is not None:
+            out = self.coded_router.call(
+                self._router_endpoint, hidden, done=mask,
+                tenant=self._router_tenant)
+            return out.to(hidden.dtype)
         head = self.coded_cluster if self.coded_cluster is not None \
             else self.coded
         return head.matvec(hidden, mask).to(hidden.dtype)
@@ -180,8 +211,14 @@ class ServeEngine:
         A private cluster is shut down for real: worker threads joined,
         worker processes reaped.  A plan attached to a shared
         ``CodedConfig.fleet`` is only detached: the fleet and its workers
-        keep serving the other consumers, and its owner closes it.
+        keep serving the other consumers, and its owner closes it.  An
+        endpoint this engine registered is unregistered (drained, its
+        fleet closed); a shared endpoint and the router stay up.
         """
+        if self.coded_router is not None:
+            if self._owns_endpoint:
+                self.coded_router.unregister(self._router_endpoint)
+            self.coded_router = None
         if self.coded_cluster is not None:
             if self._owns_cluster:
                 self.coded_cluster.shutdown()

@@ -3,10 +3,8 @@
 schedules equal for the same seeds, the concurrent-failure count, and
 scripted storms against a live fleet on every transport, where every
 resolved value must be bitwise the local replay of its round's pattern
-and close to the fault-free result.
-
-The JAX package's autoscaling chaos case waits for ``scale/*``
-(ROADMAP.md §1); ``run_chaos(autoscale=)`` raises until then."""
+and close to the fault-free result, also with the autoscaler
+(``repro_torch.scale``) changing the roster during the storm."""
 
 import pytest
 
@@ -222,8 +220,49 @@ def test_recovery_latency_is_reported_per_fault_kind():
 
 
 def test_autoscale_waits_for_the_scale_port():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_chaos([], autoscale={"policy": None}, device="cpu")
+    """``run_chaos(autoscale=)`` raised until ``scale/*`` was ported; it
+    now starts an ``Autoscaler`` on the chaos fleet and lands its
+    decision log on the result.  Here its default queue-depth policy
+    sees nothing queued and drains the fleet to ``min_members``, one
+    worker per tick, without failing a call."""
+    res = run_chaos([], autoscale={"policy": None, "interval_s": 0.05,
+                                   "cooldown_s": 0.0, "min_members": 4},
+                    calls=6, spacing_s=0.1, warmup_s=0.5, device="cpu")
+    counts = res.counts()
+    assert sum(counts.values()) == 6 and counts["failed"] == 0
+    assert all(o.bitwise and o.correct for o in res.outcomes)
+    downs = [d for d in res.autoscale if d["action"] == "down"]
+    assert [d["applied"] for d in downs] == [-1, -1]
+    assert all(d["ok"] for d in res.autoscale)
+    assert res.final_plan["n"] == 4
+
+
+def test_autoscaling_interleaves_with_faults():
+    """The JAX package's case: scripted faults and autoscaling decisions
+    on the same fleet at once (a kill can land mid scale-up, a join mid
+    drain); run_chaos's invariants hold regardless, and the decision log
+    shows scaling in both directions."""
+    from repro_torch.scale import SchedulePolicy
+
+    sched = scripted_schedule(seed=7, n=6, s=2, duration=2.0, n_events=5)
+    res = run_chaos(
+        sched, transport="memory", n=6, s=2, seed=7, calls=16,
+        spacing_s=0.1, warmup_s=3.0, device="cpu",
+        autoscale={"policy": SchedulePolicy([(0, 6), (0.5, 8), (1.5, 6)]),
+                   "min_members": 2, "max_members": 10,
+                   "interval_s": 0.1, "cooldown_s": 0.2})
+    counts = res.counts()
+    assert sum(counts.values()) == 16
+    if res.max_concurrent <= 2:
+        assert counts["failed"] == 0
+    resolved = [o for o in res.outcomes if o.outcome != "failed"]
+    assert resolved
+    assert all(o.bitwise and o.correct for o in resolved)
+    actions = [d["action"] for d in res.autoscale]
+    assert "up" in actions and "down" in actions
+    for d in res.autoscale:
+        if d["action"] != "hold":
+            assert d["reason"] and d["target"] >= 0
 
 
 @pytest.mark.parametrize("transport", ["pipe", "tcp", "shm"])

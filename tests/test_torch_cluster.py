@@ -314,6 +314,11 @@ def test_call_built_across_a_reencode_is_rebuilt(operand):
 
         fleet._reencode = reencode
         fleet.transport.alloc_operand = alloc_operand
+        # even capacities: the re-encode keeps k = min(k, live hosts)
+        # (rates measured under load could cut a proposed-hetero code
+        # that keeps k)
+        fleet.worker_capacities = lambda ws=None, levels=4, rates=None: \
+            [1] * len(ws if ws is not None else fleet.live_workers())
         cl.matvec(x)
         k0 = cl.handle._ps.plan.k
         armed.append(True)

@@ -92,6 +92,20 @@ def test_bcsr_matmul_live_rows(hopper):
     close(out, bcsr_matmul_plain(a_data, a_idx, b, rows, mb=mb))
 
 
+@pytest.mark.parametrize("N", [1, 2, 3, 8, 64])
+def test_bcsr_matmul_sums_in_its_plain_versions_order(hopper, N):
+    """Each output is one f32 sum over the slots and K rows in order, at
+    every width: bitwise the plain version, one column included (where
+    the library would take a GEMV that sums as a tree).  The shape is a
+    card worker's task of the LM head, where the two orders differ."""
+    rng = np.random.default_rng(N)
+    a = block_sparse(rng, 3072, 8032, 8, 8, 0.1)
+    a_data, a_idx, _ = pack_bcsr(a, 32, 32)
+    args = (t(a_data).to(hopper), t(a_idx, torch.int32).to(hopper),
+            t(rng.standard_normal((3072, N))).to(hopper))
+    assert torch.equal(bcsr_matmul(*args), bcsr_matmul_plain(*args))
+
+
 def packed_workers(rng, n, mb, K, dtype):
     """n workers' shards (K, mb * 32), packed to J = K / 32 slots with the
     packer's zero pads, and each block-row's real slot count."""
@@ -598,3 +612,87 @@ def test_process_cluster_children_compute_on_the_card(hopper, transport):
     if prefix is not None:
         assert not [e for e in os.listdir("/dev/shm")
                     if e.startswith(prefix)]
+
+
+@pytest.mark.parametrize("cols", [2, 62, 64, 128])
+def test_routed_batch_is_bitwise_each_call_solo(hopper, cols):
+    """A router batch of ``cols`` operand columns (calls of width 2) is
+    one round: each card worker runs one ``bcsr_matmul`` at N = cols, on
+    either side of the kernel's narrow-to-wide switch at 64, and each
+    call's slice one ``decode_matmul``.  Every routed result is bitwise
+    the same call alone in process (N = 2) under the round's pattern."""
+    from repro_torch.serve import Router
+
+    rng = np.random.default_rng(14)
+    A = torch.as_tensor(block_sparse(rng, 512, 288, 32, 32, 0.5))
+    xs = torch.as_tensor(rng.standard_normal(
+        (cols // 2, 2, 512)).astype(np.float32))
+    plan = compile_plan(A.to(hopper), scheme="proposed", n=6, s=2)
+    with Router(batch_wait_s=1.0) as router:
+        router.register("head", plan, n_workers=6, adaptive=False,
+                        width=cols)
+        fleet = router._endpoints["head"].replicas[0].fleet
+        assert (fleet.backend, fleet.device.type) == ("cuda", "cuda")
+        router.pause()
+        futs = [router.submit("head", x) for x in xs]
+        before = launch_counts()
+        router.resume()
+        outs = [f.result(120) for f in futs]
+        torch.cuda.synchronize()
+        after = launch_counts()
+        log = router.dispatch_log("head")
+    assert [(e["calls"], e["cols"]) for e in log] == [(len(xs), cols)]
+    rep = futs[0].report
+    assert all(f.report is rep for f in futs)
+    launched = {k: after[k] - before[k] for k in after}
+    assert launched["decode_matmul"] == len(xs)
+    assert plan.k <= launched["bcsr_matmul"] <= plan.n
+    assert launched["cyclic_encode"] == 0
+    for x, out in zip(xs, outs):
+        assert out.device.type == "cuda"
+        assert torch.equal(out, plan.matvec(x.to(hopper), rep.pattern))
+
+
+def test_grown_reencode_on_the_card(hopper):
+    """``CodedFleet(grow_encodings=True)`` on the card: a scale-up by two
+    workers re-encodes to a larger code (n' > n, k' > k, s' >= s) with
+    ``cyclic_encode`` on the card, once per join; the results
+    are bitwise the chosen plan in process; scaling back reuses the
+    first compile (no encode) and is bitwise the pre-growth result."""
+    from repro_torch.api import CodedFleet
+    from repro_torch.cluster.fleet import wait_settled
+    from repro_torch.scale import Autoscaler, SchedulePolicy
+
+    rng = np.random.default_rng(15)
+    A = torch.as_tensor(block_sparse(rng, 512, 288, 32, 32, 0.5))
+    x = torch.as_tensor(rng.standard_normal((2, 512)).astype(np.float32))
+    plan = compile_plan(A.to(hopper), scheme="proposed", n=4, s=1)
+    with CodedFleet(4, device=hopper, grow_encodings=True) as fleet:
+        h = fleet.attach(plan)
+        all4 = np.ones(4, bool)
+        first = h.matvec(x, all4)
+        scaler = Autoscaler(fleet, policy=SchedulePolicy([(0, 4), (1, 6),
+                                                          (3, 4)]),
+                            min_members=2, max_members=8, cooldown_s=0.0)
+        scaler.step(now=0.0)
+        before = launch_counts()
+        assert scaler.step(now=2.0).applied == 2
+
+        wait_settled(h, 6, timeout=60)
+        torch.cuda.synchronize()
+        grown = h.plan
+        assert grown.n > plan.n and grown.k > plan.k and grown.s >= plan.s
+        # two joins, one re-encode and one compile each
+        assert launch_counts()["cyclic_encode"] - before["cyclic_encode"] \
+            == 2
+        for i in range(3):
+            done = np.ones(grown.n, bool)
+            done[[i, grown.n - 1 - i][: grown.s]] = False
+            assert torch.equal(h.matvec(x, done),
+                               grown.matvec(x.to(hopper), done))
+        assert scaler.step(now=3.0).applied == -1
+        assert scaler.step(now=3.5).applied == -1
+        wait_settled(h, 4, timeout=60)
+        assert h.plan is plan
+        assert torch.equal(h.matvec(x, all4), first)
+        scaler.close()

@@ -40,7 +40,10 @@ def test_import_leaves_jax_and_repro_unloaded():
         "repro_torch.cluster.transport.shm, repro_torch.cluster.chaos, "
         "repro_torch.cluster.retry, repro_torch.obs.attrib, "
         "repro_torch.obs.export, repro_torch.obs.__main__\n"
-        "repro_torch.compile_plan\n"
+        "import repro_torch.serve.router, repro_torch.scale, "
+        "repro_torch.scale.pool, repro_torch.scale.controller\n"
+        "repro_torch.compile_plan, repro_torch.CodedFleet, "
+        "repro_torch.ClusterPlan, repro_torch.Autoscaler\n"
         "repro_torch.configs.get_config('phi3-mini-3.8b')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'repro' or m.startswith('repro.') "
@@ -53,6 +56,34 @@ def test_import_leaves_jax_and_repro_unloaded():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+def test_public_names_match_the_reference():
+    """Every top-level name of the JAX package, and every name its
+    ``repro.api`` and ``repro.serve`` export, resolves in the port (the
+    top level lazily); the port adds ``plan_from_reference_arrays``."""
+    import repro
+    import repro.api
+    import repro.serve
+    import repro_torch
+    import repro_torch.api
+    import repro_torch.serve
+
+    assert set(repro_torch.__all__) == set(repro.__all__) | {
+        "plan_from_reference_arrays"}
+    for name in repro_torch.__all__:
+        assert getattr(repro_torch, name) is not None, name
+    for ref, port in ((repro.api, repro_torch.api),
+                      (repro.serve, repro_torch.serve)):
+        names = {n for n in vars(ref) if not n.startswith("_")
+                 and not isinstance(getattr(ref, n), type(repro))}
+        missing = sorted(n for n in names if not hasattr(port, n))
+        assert not missing, (port.__name__, missing)
+    from repro_torch.api import CodedFleet, PlanHandle
+    from repro_torch.cluster.fleet import CodedFleet as Fleet
+
+    assert CodedFleet is Fleet is repro_torch.CodedFleet
+    assert PlanHandle is repro_torch.PlanHandle
+
+
 SCANNED = sorted([p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")]
                  + ["chip_smoke.py"])
 
@@ -62,7 +93,7 @@ def test_scan_covers_every_subpackage():
                 for p in PORT.rglob("__init__.py")}
     assert {"api", "cluster", "cluster/transport", "configs", "core",
             "kernels", "launch", "models", "obs", "parallel", "runtime",
-            "serve"} <= packages
+            "scale", "serve"} <= packages
     for pkg in packages:
         assert any(path.startswith(f"src/repro_torch/{pkg}/".replace("/./", "/"))
                    for path in SCANNED), pkg

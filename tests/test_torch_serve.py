@@ -268,15 +268,33 @@ def test_engine_mask_routes_through_faults():
             rtol=5e-3, atol=5e-3)
 
 
-@pytest.mark.parametrize("mode", [dict(router=object())])
+# one case, the router mode: the name and the case id stay those of the
+# test that expected this mode to raise, so its history stays one test
+@pytest.mark.parametrize("mode", [dict(router=True)])
 def test_unported_coded_modes_raise(mode):
+    """The router mode raised ``NotImplementedError`` until
+    ``serve/router.py`` was ported; no coded mode raises now.  It serves
+    the head through a ``Router`` endpoint, bitwise the in-process
+    engine under an explicit mask."""
+    from repro_torch.serve import Router
+
     cfg = port_configs.get_smoke_config("phi3-mini-3.8b")
     model = build_model(cfg, torch.float32, device=CPU)
     params = model.init(torch.Generator().manual_seed(0))
-    coded = port_configs.base.CodedConfig(enabled=True, n_workers=6,
-                                          stragglers=2, **mode)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ServeEngine(model, params, cfg, coded=coded)
+    base = dict(enabled=True, n_workers=6, stragglers=2, backend="packed")
+    local = ServeEngine(model, params, cfg,
+                        coded=port_configs.base.CodedConfig(**base))
+    with Router() as router:
+        coded = port_configs.base.CodedConfig(
+            **base, **{k: router for k in mode})
+        with ServeEngine(model, params, cfg, coded=coded) as eng:
+            assert router.endpoints() == ["lm-head"]
+            done = np.ones(6, bool)
+            done[[0, 3]] = False
+            h = torch.randn(2, cfg.d_model)
+            assert torch.equal(eng.coded_logits(h, done),
+                               local.coded_logits(h, done))
+        assert router.endpoints() == []
 
 
 def test_non_resilient_scheme_rejected():
