@@ -113,10 +113,38 @@ Phases, one JSON line each:
      grow and the chaos run re-encoded to.  Race-mode
      rounds launch k to n ``bcsr_matmul`` (a cancel may land after a
      worker started) and one ``decode_matmul`` per call; every routed
-     result is bitwise the in-process plan under its round's pattern.
+     result is bitwise the in-process plan under its round's pattern;
+ 10. models -- the coded consumers and the other model families, one
+     line per sub-phase with its wall time: ``moe-serve``,
+     granite-moe-1b-a400m at full depth and width in bf16 through the
+     launcher's steps and defaults (coded head n=6, s=2, 1024 x 49155,
+     8 requests, 16 new tokens), checked as the serve phase checks phi3
+     (the cache at a capacity where no slot drops, with the share of
+     routing choices equal to a fresh forward's, and the dropped-slot
+     share at the published capacity 1.25 while serving); ``coded-moe``,
+     ``CodedMoE`` on its first layer in f32 (32 experts, d 1024, h 512,
+     top-8) on that layer's input at a decode step of 8 and a prefill of
+     8 x 9 tokens, against ``moe_block`` under the all-alive and 3 random
+     masks (max(REL, kappa eps) with kappa the worst of the layer's 96
+     plans, and whether the reference test's 1e-4 held; aux 1e-6), 96
+     ``cyclic_encode`` at build and 96 ``bcsr_matmul`` + 96
+     ``decode_matmul`` a call, then through a
+     ``CodedFleet`` of 6 ``memory`` card workers holding the engine's
+     head too, bitwise the in-process calls; ``coded-grads``,
+     ``CodedAggregator.build(6, 2)`` over payloads of one layer's size,
+     all C(6,2) patterns against the f64 sum (one solve each, then
+     hits), on ``to_cluster()`` card workers and on that fleet (2e-5);
+     one line each for mamba2-1.3b, zamba2-2.7b and phi-3-vision-4.2b
+     through the launcher (full depth, bf16, the coded head under 5
+     masks, 16 decode steps against a fresh forward; the vision model
+     also with 256 image embeddings through ``prefill``), and
+     whisper-tiny with 1500 frames through ``prefill`` and 16 decode
+     steps (the launcher refuses audio).  Kernel rows at granite's, the
+     families' and the expert plans' shapes.
 
 Launch counters are set to 0 just before each main path (mv, mm,
-serve, cluster, and each edge and front sub-phase) and read just after; a child
+serve, cluster, and each edge, front and models sub-phase) and read
+just after; a child
 process's launches come from its own report: every encode must have gone through
 ``cyclic_encode``, every worker product through ``bcsr_matmul`` (one
 launch per matvec and per matmat) and every decode through
@@ -135,8 +163,10 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import contextlib
+import dataclasses
 import hashlib
 import io
+import itertools
 import json
 import os
 import socket
@@ -186,8 +216,12 @@ from repro_torch.kernels.decode_matmul import (  # noqa: E402
     prepare_decode,
 )
 from repro_torch.launch import serve as launcher  # noqa: E402
+import repro_torch.models.moe as moe_module  # noqa: E402
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models.moe import CodedMoE, moe_block  # noqa: E402
 from repro_torch.obs import attribute  # noqa: E402
+from repro_torch.parallel import CodedAggregator  # noqa: E402
 from repro_torch.runtime import encode_blocks, support_tables  # noqa: E402
 from repro_torch.runtime.pack import unpack_coded_blocks  # noqa: E402
 from repro_torch.scale import (  # noqa: E402
@@ -1018,18 +1052,37 @@ def launcher_call(fn, *args):
     return out, buf.getvalue().splitlines()
 
 
-def decode_step_bytes(model, batch: int, context: float) -> float:
+def decode_step_bytes(model, batch: int, context: float,
+                      expert_share: float = 1.0) -> float:
     """Bytes one decode step must move: every weight once (of the
-    embedding only the batch's rows), the K/V of ``context`` positions
-    per layer, the logits written once."""
+    embedding only the batch's rows; of an MoE layer's experts the share
+    ``expert_share`` the step routes to), the K/V of ``context``
+    positions per attention layer, a mamba layer's conv window and state
+    read and written, the logits written once."""
     cfg = model.cfg
     esz = model.embed.element_size()
-    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    weights = 0.0
+    for name, p in model.named_parameters():
+        share = expert_share if ".moe.w_" in name else 1.0
+        weights += p.numel() * p.element_size() * share
     if not cfg.tie_embeddings:
         weights += (batch - cfg.vocab) * cfg.d_model * esz
-    kv = (2 * batch * context * cfg.attn.n_kv_heads * cfg.attn.head_dim
-          * esz * cfg.n_layers)
-    return weights + kv + batch * cfg.vocab * 4
+    cache = 0.0
+    for c in model.init_cache(batch, 1)["layers"]:
+        if "state" in c:
+            cache += 2 * sum(v.numel() * v.element_size() for v in c.values())
+        else:
+            cache += context * sum(c[n].numel() * c[n].element_size()
+                                   for n in ("k", "v"))
+    return weights + cache + batch * cfg.vocab * 4
+
+
+def expert_share(log: "RouteLog", n_experts: int, batch: int) -> float:
+    """The mean share of an MoE layer's experts that a decode step's
+    tokens route to (the calls of ``batch`` tokens)."""
+    shares = [len(torch.unique(top_e)) / n_experts
+              for top_e, _ in log.calls if top_e.shape[0] == batch]
+    return float(np.mean(shares)) if shares else 1.0
 
 
 def left_padded(prompts) -> np.ndarray:
@@ -1041,22 +1094,111 @@ def left_padded(prompts) -> np.ndarray:
     return toks
 
 
-def check_cache(model, toks: np.ndarray, max_len: int, limit: float
-                ) -> dict:
-    """Prefill then one decode step, against a fresh forward over the
-    prompt plus that token: each set of logits within ``limit`` x
-    max|logit| of the forward's at the same position."""
-    with torch.inference_mode():
-        last, cache = model.prefill(toks, max_len=max_len)
-        nxt = last.argmax(dim=-1)
-        step, _ = model.decode_step(cache, nxt[:, None])
-        full, _ = model(torch.cat([torch.as_tensor(toks, device=nxt.device),
-                                   nxt[:, None].int()], dim=1))
+class RouteLog:
+    """Every routing of an MoE layer while active: each call's top-k
+    experts (t, k), recomputed with the routing's own f32 product, and
+    its capacity-keep mask (t * k), in call order (layer by layer)."""
+
+    def __enter__(self) -> "RouteLog":
+        self.calls = []
+        self._real = real = moe_module._route_tokens
+
+        def logged(router, tokens, moe, cap):
+            out = real(router, tokens, moe, cap)
+            with moe_module._full_f32():
+                logits = torch.einsum("td,de->te", tokens.float(),
+                                      router.float())
+            top_e = torch.topk(torch.softmax(logits, dim=-1), moe.top_k,
+                               dim=-1)[1]
+            self.calls.append((top_e, out[3]))
+            return out
+
+        moe_module._route_tokens = logged
+        return self
+
+    def __exit__(self, *exc) -> None:
+        moe_module._route_tokens = self._real
+
+    def dropped_share(self) -> float:
+        kept = sum(int(keep.sum()) for _, keep in self.calls)
+        return 1.0 - kept / max(1, sum(k.numel() for _, k in self.calls))
+
+
+@contextlib.contextmanager
+def no_drop(model):
+    """An MoE model at a capacity factor where no slot can drop
+    (n_experts / top_k: every expert gets a slot for every token); a
+    model without MoE as it is."""
+    cfg = model.cfg
+    if cfg.moe is None:
+        yield cfg
+        return
+    model.cfg = cfg.with_(moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    try:
+        yield model.cfg
+    finally:
+        model.cfg = cfg
+
+
+def route_agreement(calls: list, n_layers: int, b: int, p: int,
+                    steps: int) -> float:
+    """The share of (token, layer, slot) choices of a prefill of p tokens
+    and ``steps`` decode steps equal to a fresh forward's over all of
+    them (``calls``: the routings of the prefill, each step and the
+    forward, each layer by layer)."""
+    pre = calls[:n_layers]
+    dec = [calls[(1 + i) * n_layers:(2 + i) * n_layers]
+           for i in range(steps)]
+    fwd = calls[(1 + steps) * n_layers:(2 + steps) * n_layers]
+    same = total = 0
+    s = p + steps
+    for layer in range(n_layers):
+        full = fwd[layer][0].view(b, s, -1)
+        got = [pre[layer][0].view(b, p, -1)] + [
+            d[layer][0].view(b, 1, -1) for d in dec]
+        want = [full[:, :p]] + [full[:, p + i:p + i + 1]
+                                for i in range(steps)]
+        for g, w in zip(got, want):
+            same += int((g == w).sum())
+            total += g.numel()
+    return same / total
+
+
+def check_cache(model, toks: np.ndarray, max_len: int, limit: float,
+                steps: int = 1, **kw) -> dict:
+    """Prefill, then ``steps`` greedy decode steps, against one fresh
+    forward over the prompt and those tokens: each set of logits within
+    ``limit`` x max|logit| of the forward's at the same position.  An MoE
+    model runs at a capacity where nothing drops (a fresh forward over
+    more tokens drops other slots), and the line reports the share of
+    routing choices equal to the forward's.  ``kw``: the family's prefix
+    (``image_embeds``, ``frames``)."""
+    with torch.inference_mode(), no_drop(model), RouteLog() as log:
+        last, cache = model.prefill(toks, max_len=max_len, **kw)
+        got, fed = [last], []
+        for _ in range(steps):
+            nxt = got[-1].argmax(dim=-1)[:, None]
+            fed.append(nxt)
+            out, cache = model.decode_step(cache, nxt)
+            got.append(out)
+        full, _ = model(torch.cat([torch.as_tensor(toks, device=last.device)]
+                                  + [f.int() for f in fed], dim=1), **kw)
     row = {"dtype": str(model.dtype).removeprefix("torch."),
-           "limit": limit}
-    for key, got, want in (("prefill", last, full[:, -2]),
-                           ("decode", step, full[:, -1])):
-        row[f"{key}_rel_err"] = rel_err(got, want.double())
+           "limit": limit, "decode_steps": steps}
+    want = full[:, -steps - 1:]
+    errs = [rel_err(g, want[:, i].double()) for i, g in enumerate(got)]
+    row["prefill_rel_err"] = errs[0]
+    row["decode_rel_err"] = max(errs[1:])
+    if model.cfg.moe is not None:
+        row["capacity_factor"] = model.cfg.moe.n_experts / model.cfg.moe.top_k
+        row["dropped_share"] = log.dropped_share()
+        row["route_agreement"] = route_agreement(
+            log.calls, model.cfg.n_layers, toks.shape[0], toks.shape[1],
+            steps)
+        if row["dropped_share"] != 0.0:
+            raise AssertionError(f"serve cache: slots dropped {row}")
+    for key in ("prefill", "decode"):
         if not row[f"{key}_rel_err"] <= limit:
             raise AssertionError(f"serve cache {key}: {row}")
     return row
@@ -1094,14 +1236,54 @@ def step_census(model, toks: np.ndarray, max_len: int, reps: int = 5
     return row
 
 
+def check_head(plan, engine, cfg, params, gen, dev, where: str
+               ) -> tuple[list, list, torch.Tensor]:
+    """The coded head against f64 truth under 5 of the engine's own
+    masks (its last logit column too: a head whose vocab does not divide
+    by k is padded at the encode and cut at the decode), 1
+    ``bcsr_matmul`` + 1 ``decode_matmul`` per call -> (pattern rows,
+    masks, hidden)."""
+    head = params["embed"].T if cfg.tie_embeddings else params["head"]
+    hidden = torch.randn((2, cfg.d_model), generator=gen, device=dev)
+    ref = hidden.double() @ head.double()
+    dtype = plan.executor.coded.dtype
+    patterns, masks = [], []
+    for _ in range(5):
+        done = engine._straggler_mask()
+        masks.append(done)
+        before = launch_counts()
+        got = engine.coded_logits(hidden, done)
+        expect_counts(f"{where}: one coded_logits", launched_since(before),
+                      bcsr_matmul=1, cyclic_encode=0, decode_matmul=1)
+        if got.shape != (2, cfg.vocab) or got.dtype != hidden.dtype:
+            raise AssertionError(f"coded_logits: {got.dtype} {got.shape}")
+        row = check_decoded(
+            where, dtype, plan, done, got, ref, cfg.d_model,
+            lambda rows: mv_stored_decode(plan, rows, hidden, cfg.vocab))
+        row["last_column_rel_err"] = float(
+            (got[:, -1].double() - ref[:, -1]).abs().max() / ref.abs().max())
+        if not row["last_column_rel_err"] <= row["bound"]:
+            raise AssertionError(f"{where} last column: {row}")
+        patterns.append(row)
+    return patterns, masks, hidden
+
+
 def phase_serve(seed: int, dev, gen, arch: str = "phi3-mini-3.8b",
-                smoke: bool = False) -> dict:
+                smoke: bool = False, line: tuple = ("serve", {}),
+                steps: int = 1, bf16_limit: float = 2e-2,
+                extra=None) -> dict:
     """The launcher's path (``build``, ``make_requests``, ``serve``,
-    ``check_coded_head``) with its defaults, then the serve checks."""
+    ``check_coded_head``) with its defaults, then the serve checks: the
+    coded head under 5 engine masks, the cache against a fresh forward
+    over ``steps`` decode steps (bf16 within ``bf16_limit``, and f32 on
+    the same weights within 2e-4), a traced decode step, and
+    ``extra(model, toks)``'s fields when given.  The line goes out as
+    ``line`` (phase, fields)."""
     argv = ["--arch", arch, "--coded", "--seed", str(seed),
             "--device", str(dev)] + (["--smoke"] if smoke else [])
     args = launcher.parse_args(argv)
     torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
 
     # the main path: build, serve, the launcher's coded-head check
     reset_launch_counts()
@@ -1112,7 +1294,7 @@ def phase_serve(seed: int, dev, gen, arch: str = "phi3-mini-3.8b",
             launcher.build, args)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    expect_counts("serve build", launch_counts(), bcsr_matmul=0,
+    expect_counts(f"{cfg.name} build", launch_counts(), bcsr_matmul=0,
                   cyclic_encode=1, decode_matmul=0)
     plan = engine.coded
     timer = StepTimer(engine)
@@ -1120,7 +1302,8 @@ def phase_serve(seed: int, dev, gen, arch: str = "phi3-mini-3.8b",
     reqs = launcher.make_requests(args, cfg, rng)
     before = launch_counts()
     t0 = time.perf_counter()
-    out, lines = launcher_call(launcher.serve, engine, reqs)
+    with RouteLog() as routed:
+        out, lines = launcher_call(launcher.serve, engine, reqs)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     printed += lines
@@ -1146,27 +1329,18 @@ def phase_serve(seed: int, dev, gen, arch: str = "phi3-mini-3.8b",
     decode_ms = timer.ms("decode")
     contexts = [len(r.prompt) for r in reqs]
     context = float(np.mean(contexts)) + args.max_new / 2
-    bound_ms = decode_step_bytes(model, args.batch, context) \
+    moe_fields = {}
+    share = 1.0
+    if cfg.moe is not None:
+        share = expert_share(routed, cfg.moe.n_experts, args.batch)
+        moe_fields = {"capacity_factor": cfg.moe.capacity_factor,
+                      "dropped_share": routed.dropped_share(),
+                      "decode_expert_share": share}
+    bound_ms = decode_step_bytes(model, args.batch, context, share) \
         / HBM_BYTES_PER_S * 1e3
 
-    # the coded head against f64 truth under the engine's own masks
-    head = params["embed"].T if cfg.tie_embeddings else params["head"]
-    hidden = torch.randn((2, cfg.d_model), generator=gen, device=dev)
-    ref = hidden.double() @ head.double()
-    dtype = plan.executor.coded.dtype
-    patterns, masks = [], []
-    for _ in range(5):
-        done = engine._straggler_mask()
-        masks.append(done)
-        before = launch_counts()
-        got = engine.coded_logits(hidden, done)
-        expect_counts("one coded_logits", launched_since(before),
-                      bcsr_matmul=1, cyclic_encode=0, decode_matmul=1)
-        if got.shape != (2, cfg.vocab) or got.dtype != hidden.dtype:
-            raise AssertionError(f"coded_logits: {got.dtype} {got.shape}")
-        patterns.append(check_decoded(
-            "serve", dtype, plan, done, got, ref, cfg.d_model,
-            lambda rows: mv_stored_decode(plan, rows, hidden, cfg.vocab)))
+    patterns, masks, hidden = check_head(plan, engine, cfg, params, gen,
+                                         dev, cfg.name)
     coded_p50 = host_p50_ms(lambda: engine.coded_logits(hidden, masks[0]),
                             20)
 
@@ -1174,17 +1348,22 @@ def phase_serve(seed: int, dev, gen, arch: str = "phi3-mini-3.8b",
     waves = [r.prompt for r in reqs[: args.batch]]
     toks = left_padded(waves)
     before = launch_counts()
-    cache_checks = [check_cache(model, toks, args.max_len, 2e-2)]
+    cache_checks = [check_cache(model, toks, args.max_len, bf16_limit,
+                                steps)]
     step = step_census(model, toks, args.max_len)
     model32 = build_model(cfg, torch.float32, device=dev)
     model32.load_state_dict(params)
-    cache_checks.append(check_cache(model32, toks, args.max_len, 2e-4))
+    cache_checks.append(check_cache(model32, toks, args.max_len, 2e-4,
+                                    steps))
     del model32
+    extra_fields = extra(model, toks) if extra is not None else {}
     expect_counts("prefill and decode", launched_since(before),
                   bcsr_matmul=0, cyclic_encode=0, decode_matmul=0)
 
-    emit("serve", arch=cfg.name, dtype=str(model.dtype).removeprefix(
-        "torch."), params_b=sum(p.numel() for p in model.parameters()) / 1e9,
+    emit(line[0], **line[1], arch=cfg.name,
+         dtype=str(model.dtype).removeprefix("torch."),
+         params_b=sum(p.numel() for p in model.parameters()) / 1e9,
+         layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab,
          requests=args.requests, batch=args.batch, max_new=args.max_new,
          max_len=args.max_len, n=plan.n, s=plan.s, k=plan.k,
          scheme=plan.scheme.name, backend=plan.backend, served=len(out),
@@ -1195,13 +1374,16 @@ def phase_serve(seed: int, dev, gen, arch: str = "phi3-mini-3.8b",
          decode_step_p50_ms=float(np.median(decode_ms)),
          decode_step_ms_min=min(decode_ms), decode_step_ms_max=max(decode_ms),
          bound_ms=bound_ms, bound_by="bytes",
-         bound_note="weights + K/V at the mean context over 3.35 TB/s",
+         bound_note="weights (routed experts only) + K/V at the mean "
+                    "context + mamba state over 3.35 TB/s",
          peak_memory_gb=peak_gb, launcher_worst_rel_err=worst,
          coded_patterns=patterns, coded_logits_p50_ms=coded_p50,
          decode_step_busy_share=step["busy_share"],
-         cache=cache_checks, launches=counts, printed=printed)
+         cache=cache_checks, launches=counts, **moe_fields, **extra_fields,
+         printed=printed, wall_s=time.perf_counter() - t_phase)
     return {"engine": engine, "hidden": hidden, "done": masks[0],
-            "counts": counts, "p50": coded_p50}
+            "counts": counts, "p50": coded_p50, "model": model,
+            "params": params, "cfg": cfg, "args": args}
 
 
 def encode_row(plan, case: str, reps: int = 3) -> dict:
@@ -1217,21 +1399,27 @@ def encode_row(plan, case: str, reps: int = 3) -> dict:
                         torch.as_tensor(coef, device=dev), R, case, reps)
 
 
-def kernels_serve(serve: dict, reps: int) -> list[dict]:
-    """The three kernels at the serve geometry: the head's encode at
-    build, and one coded_logits call's product and decode."""
-    engine, hidden, done = serve["engine"], serve["hidden"], serve["done"]
-    plan = engine.coded
+def kernels_product(plan, x, done, case: str, reps: int) -> list[dict]:
+    """``bcsr_matmul`` and ``decode_matmul`` of one matvec of ``plan``
+    (x (N, t): N columns) under ``done``."""
     ex = plan.executor
     dplan = ex.cache.plan(done)
-    rows = [check_bcsr_mv(plan, hidden, done, "serve", reps),
-            encode_row(plan, "serve")]
-    y = bcsr_matmul(ex.packed.a_data, ex.packed.a_idx, hidden.T.contiguous(),
+    rows = [check_bcsr_mv(plan, x, done, case, reps)]
+    y = bcsr_matmul(ex.packed.a_data, ex.packed.a_idx, x.T.contiguous(),
                     dplan.rows_dev, mb=ex.packed.mb, counts=ex.packed.counts)
     rows.append(check_decode(dplan.hinv_dev,
                              y.view(ex.k, ex.packed.c_pad, -1), "mv", reps,
-                             case="serve", c=ex.packed.c, r=ex.r))
+                             case=case, c=ex.packed.c, r=ex.r))
     return rows
+
+
+def kernels_serve(serve: dict, reps: int, case: str = "serve"
+                  ) -> list[dict]:
+    """The three kernels at the serve geometry: the head's encode at
+    build, and one coded_logits call's product and decode."""
+    plan = serve["engine"].coded
+    rows = kernels_product(plan, serve["hidden"], serve["done"], case, reps)
+    return rows[:1] + [encode_row(plan, case)] + rows[1:]
 
 
 # ---------------------------------------------------------------------------
@@ -2727,6 +2915,389 @@ def phase_front(seed: int, dev, e: dict) -> tuple[dict, list]:
     return counts, rows + grow_rows + chaos_krows
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the coded consumers and the remaining model families
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "granite-moe-1b-a400m"
+# served through the launcher, each with its coded head
+FAMILY_ARCHS = ("mamba2-1.3b", "zamba2-2.7b", "phi-3-vision-4.2b")
+AUDIO_ARCH = "whisper-tiny"
+FAMILY_STEPS = 16
+MOE_REPS = 5
+
+
+def bf16_drift_limit(n_layers: int) -> float:
+    """The bf16 cache check's limit for a deep family: each layer stores
+    its output in bf16 (relative error 2^-9) and a random-weight stack
+    carries every one of them to the logits, so the prefill and a fresh
+    forward, which order their sums differently, drift apart with depth
+    (``scripts/bf16_probe.py``: mamba2-1.3b 0.96% at 6 layers, 4.4% at
+    48; f32 on the same weights within 1e-5).  2e-2 at least, as the
+    serve phase; the f32 check (2e-4) is the correctness gate."""
+    return max(2e-2, n_layers * 2.0 ** -9)
+
+
+def mixed_masks(rng, n: int, s: int, count: int) -> list[np.ndarray]:
+    """``count`` random masks of 1 to s stragglers."""
+    return [straggler_masks(rng, n, int(rng.integers(1, s + 1)), 1)[0]
+            for _ in range(count)]
+
+
+def moe_layer_inputs(model, toks: np.ndarray) -> tuple:
+    """Layer 0's MoE input (the normed residual) for a prefill of
+    ``toks`` and one decode step after it, in f32."""
+    seen = []
+    real = moe_module.moe_block
+
+    def grab(p, x, moe):
+        seen.append(x.float())
+        return real(p, x, moe)
+
+    moe_module.moe_block = grab
+    try:
+        with torch.inference_mode():
+            last, cache = model.prefill(toks, max_len=64)
+            model.decode_step(cache, last.argmax(dim=-1)[:, None])
+    finally:
+        moe_module.moe_block = real
+    n = model.cfg.n_layers
+    return seen[0].clone(), seen[n].clone()
+
+
+def moe_kappa(cm, done) -> float:
+    """The largest cond(G[rows]) over a ``CodedMoE``'s plans (one seed
+    per expert) under ``done``."""
+    rows = np.flatnonzero(np.asarray(done))[: cm.n - cm.s]
+    return max(float(np.linalg.cond(pl.G[rows]))
+               for pl in cm.gate + cm.up + cm.down)
+
+
+def hold_moe(where: str, got, aux, want, aux_want, done, kappa: float,
+             t: int) -> dict:
+    """``CodedMoE`` against ``moe_block``: aux within 1e-6, the output
+    within max(REL, kappa eps) of max|want| (``decode_bound``; kappa the
+    worst of the layer's plans).  The reference test's rtol=atol=1e-4
+    (``tests/test_api_plan.py``, at d=16) is reported beside it: the
+    decode amplifies the f32 sums' rounding by up to kappa, and one seed
+    per expert makes some pattern ill-conditioned for some expert."""
+    diff = (got - want).abs()
+    excess = float((diff - (1e-4 + 1e-4 * want.abs())).max())
+    row = {"stragglers": np.flatnonzero(~np.asarray(done)).tolist(),
+           "kappa_max": kappa, "max_abs_err": float(diff.max()),
+           "rel_err": rel_err(got, want.double()),
+           "bound": decode_bound(torch.float32, kappa, t),
+           "within_1e-4": excess <= 0.0,
+           "aux_err": abs(float(aux) - float(aux_want))}
+    if not row["rel_err"] <= row["bound"] or not row["aux_err"] <= 1e-6:
+        raise AssertionError(f"{where}: {row}")
+    return row
+
+
+def models_coded_moe(seed: int, dev, serve: dict) -> tuple:
+    """``CodedMoE`` on granite's first MoE layer at full width in f32 (32
+    experts, d 1024, h 512, top-8, capacity 1.25), on that layer's input
+    from the served model at a decode step of 8 and a prefill of 8 x 9
+    tokens: in process, then through a ``CodedFleet`` of 6 ``memory``
+    card workers that also holds the engine's coded head.  -> (launches,
+    kernel rows, the fleet, the masks)."""
+    t_sub = time.perf_counter()
+    model, cfg = serve["model"], serve["cfg"]
+    moe = cfg.moe
+    p = {name: w.detach().float() for name, w in model.layers[0].moe.items()}
+    rng = np.random.default_rng(seed + 10)
+    toks = np.asarray([[1] + rng.integers(2, cfg.vocab, 8).tolist()
+                       for _ in range(8)], np.int32)
+    x_pre, x_dec = moe_layer_inputs(model, toks)
+    xs = {"decode": x_dec, "prefill": x_pre}
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    cm = CodedMoE(p, moe, n_workers=6, stragglers=2, seed=seed)
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    expect_counts("coded-moe build", launch_counts(), bcsr_matmul=0,
+                  cyclic_encode=3 * moe.n_experts, decode_matmul=0)
+    if set(cm.backends()) != {"cuda"}:
+        raise AssertionError(f"coded-moe backends {set(cm.backends())}")
+    e3 = 3 * moe.n_experts
+    masks = [np.ones(6, bool)] + mixed_masks(rng, 6, 2, 3)
+    checks, routes, local = {}, {}, {}
+    for key, x in xs.items():
+        with RouteLog() as log:
+            want, aux_want = moe_block(p, x, moe)
+        routes[key] = {"tokens": x.shape[0] * x.shape[1],
+                       "capacity": moe_module._capacity(
+                           x.shape[0] * x.shape[1], moe),
+                       "dropped_share": log.dropped_share()}
+        checks[key] = []
+        for done in masks:
+            before = launch_counts()
+            got, aux = cm(x, done)
+            torch.cuda.synchronize()
+            expect_counts(f"coded-moe {key} call", launched_since(before),
+                          bcsr_matmul=e3, cyclic_encode=0, decode_matmul=e3)
+            checks[key].append(hold_moe(
+                f"coded-moe {key}", got, aux, want, aux_want, done,
+                moe_kappa(cm, done), cfg.d_model))
+            local[key, len(checks[key]) - 1] = (got, aux)
+    p50 = {key: host_p50_ms(lambda x=x: cm(x, masks[1]), MOE_REPS)
+           for key, x in xs.items()}
+    counts = launch_counts()
+
+    # the same layer through a fleet shared with the engine's coded head
+    fleet = CodedFleet(6, transport="memory", max_inflight=8, device=dev,
+                       backend="cuda")
+    card_fleet("coded-moe fleet", fleet)
+    head = fleet.attach(serve["engine"].coded)
+    hidden, hdone = serve["hidden"], serve["done"]
+    if not torch.equal(head.matvec(hidden, hdone),
+                       serve["engine"].coded.matvec(hidden, hdone)):
+        raise AssertionError("coded-moe fleet: the head is not bitwise")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    fm = CodedMoE(p, moe, n_workers=6, stragglers=2, seed=seed, fleet=fleet)
+    torch.cuda.synchronize()
+    attach_s = time.perf_counter() - t0
+    expect_counts("coded-moe fleet build", launch_counts(), bcsr_matmul=0,
+                  cyclic_encode=e3, decode_matmul=0)
+    bitwise = 0
+    for key, x in xs.items():
+        for j, done in enumerate(masks):
+            before = launch_counts()
+            got, aux = fm(x, done)
+            torch.cuda.synchronize()
+            expect_counts(f"coded-moe fleet {key} call",
+                          launched_since(before),
+                          bcsr_matmul=e3 * int(np.sum(done)),
+                          cyclic_encode=0, decode_matmul=e3)
+            want, aux_want = local[key, j]
+            if not torch.equal(got, want) or float(aux) != float(aux_want):
+                raise AssertionError(
+                    f"coded-moe fleet {key}: not bitwise in process under "
+                    f"{np.flatnonzero(~done).tolist()}: "
+                    f"{float((got - want).abs().max())}")
+            bitwise += 1
+    fleet_p50 = {key: host_p50_ms(lambda x=x: fm(x, masks[1]), MOE_REPS)
+                 for key, x in xs.items()}
+    fleet_counts = launch_counts()
+    emit("models", sub="coded-moe", arch=cfg.name, layer=0,
+         experts=moe.n_experts, top_k=moe.top_k, d_model=cfg.d_model,
+         d_expert=moe.d_expert, capacity_factor=moe.capacity_factor,
+         dtype="float32", n=6, s=2, plans=e3, compile_s=compile_s,
+         routes=routes, in_process=checks,
+         call_p50_ms=p50, fleet_call_p50_ms=fleet_p50,
+         fleet_attach_s=attach_s, fleet_bitwise=bitwise,
+         launches=counts, fleet_launches=fleet_counts,
+         wall_s=time.perf_counter() - t_sub)
+
+    # the three kernels at the expert shapes, N = 4 and 24
+    rows = [encode_row(cm.gate[0], "expert gate"),
+            encode_row(cm.down[0], "expert down")]
+    for key, x in xs.items():
+        cap = moe_module._capacity(x.shape[0] * x.shape[1], moe)
+        t = x.shape[0] * x.shape[1]
+        _, _, tok_id, _, dest = moe_module._route_tokens(
+            p["router"], x.reshape(t, -1), moe, cap)
+        xe = moe_module._dispatch(x.reshape(t, -1), tok_id, dest,
+                                  moe.n_experts, cap)
+        act = (torch.nn.functional.silu(cm.gate[0].matvec(xe[0], masks[1]))
+               * cm.up[0].matvec(xe[0], masks[1]))
+        rows += kernels_product(cm.gate[0], xe[0], masks[1],
+                                f"expert gate N={cap}", 50)
+        rows += kernels_product(cm.down[0], act, masks[1],
+                                f"expert down N={cap}", 50)
+    totals = add_counts(counts, fleet_counts)
+    return totals, rows, fleet, masks
+
+
+def models_coded_grads(seed: int, dev, gen, model, fleet, masks) -> dict:
+    """``CodedAggregator.build(6, 2)`` on the card over payloads the size
+    of one granite layer's parameters: every C(6,2) pattern against the
+    direct f64 sum (one solve each, then cache hits), then through
+    ``to_cluster()`` on ``memory`` card workers and through the coded-moe
+    fleet, each within 2e-5 of the in-process aggregate
+    (``tests/test_cluster.py``, ``tests/test_fleet.py``)."""
+    t_sub = time.perf_counter()
+    reset_launch_counts()
+    agg = CodedAggregator.build(6, 2, seed=seed, device=dev)
+    k = agg.scheme.k_A
+    shapes = {name: tuple(w.shape)
+              for name, w in model.layers[0].named_parameters()}
+    grads = [{name: torch.randn(shape, generator=gen, device=dev)
+              for name, shape in shapes.items()} for _ in range(k)]
+    payloads = [agg.worker_payload(i, grads) for i in range(6)]
+    truth = {name: sum(g[name].double() for g in grads) for name in shapes}
+    numel = sum(int(np.prod(sh)) for sh in shapes.values())
+    patterns = list(itertools.combinations(range(6), 2))
+    rows, worst = [], 0.0
+    for rep in range(2):
+        for pat in patterns:
+            done = np.ones(6, bool)
+            done[list(pat)] = False
+            out = agg.aggregate(payloads, done)
+            if rep:
+                continue
+            rows_k = np.flatnonzero(done)[:k]
+            kappa = float(np.linalg.cond(agg.plan().G[rows_k]))
+            err = max(rel_err(out[name], truth[name]) for name in shapes)
+            limit = decode_bound(torch.float32, kappa, k)
+            if not err <= limit:
+                raise AssertionError(f"coded-grads {pat}: {err} > {limit}")
+            worst = max(worst, err)
+            rows.append([list(pat), kappa, err])
+    cache = agg.plan()._decode_cache()
+    solves, hits = cache.misses, cache.hits
+    if (solves, hits) != (len(patterns), len(patterns)):
+        raise AssertionError(f"coded-grads: {solves} solves, {hits} hits "
+                             f"for 2 x {len(patterns)} aggregates")
+    torch.cuda.synchronize()
+
+    def hold(where, got, want) -> float:
+        """Each leaf within rtol=atol=2e-5 of the in-process one -> the
+        largest difference."""
+        worst = 0.0
+        for n in shapes:
+            diff = (got[n].to(want[n].device) - want[n]).abs()
+            if not bool((diff <= 2e-5 + 2e-5 * want[n].abs()).all()):
+                raise AssertionError(f"coded-grads {where} {n}: "
+                                     f"{float(diff.max())}")
+            worst = max(worst, float(diff.max()))
+        return worst
+
+    done = masks[1]
+    want = agg.aggregate(payloads, done)
+    t0 = time.perf_counter()
+    with agg.to_cluster(transport="memory") as cl:
+        card_workers("coded-grads cluster", cl)
+        got = agg.aggregate(payloads, done, cluster=cl)
+        clean("coded-grads cluster", [cl.last_report])
+    cluster_s = time.perf_counter() - t0
+    cluster_err = hold("cluster", got, want)
+    handle = agg.to_cluster(fleet=fleet)
+    t0 = time.perf_counter()
+    got = agg.aggregate(payloads, done, cluster=handle)
+    fleet_s = time.perf_counter() - t0
+    fleet_err = hold("fleet", got, want)
+    handle.detach()
+    counts = launch_counts()
+    emit("models", sub="coded-grads", n=6, s=2, k=k,
+         payload_params=numel, payload_mb=numel * 4 / 1e6,
+         patterns=len(patterns), solves=solves, hits=hits,
+         worst_rel_err_vs_f64=worst, per_pattern=rows,
+         cluster_s=cluster_s, fleet_s=fleet_s,
+         cluster_max_abs_diff=cluster_err, fleet_max_abs_diff=fleet_err,
+         cluster_stragglers=np.flatnonzero(~done).tolist(),
+         launches=counts, wall_s=time.perf_counter() - t_sub)
+    return counts
+
+
+def models_families(seed: int, dev, gen, smoke: bool = False
+                    ) -> tuple[list, list]:
+    """The other families at full depth and width in bf16: mamba2, zamba2
+    and phi-3-vision through the launcher with their coded heads (and the
+    vision model's 256 image embeddings through ``prefill`` and 16 decode
+    steps), then whisper with 1500 frames through ``prefill`` and 16
+    decode steps (the launcher refuses audio); each cache within
+    ``bf16_drift_limit`` in bf16 and 2e-4 in f32 of a fresh forward.
+    -> (launches, kernel rows at each head)."""
+    counts, rows = [], []
+    for arch in FAMILY_ARCHS:
+        extra = None
+        if arch == "phi-3-vision-4.2b":
+            def extra(model, toks):
+                image = torch.randn(
+                    (toks.shape[0], model.cfg.vision_tokens,
+                     model.cfg.d_model), generator=gen,
+                    device=dev).to(model.dtype)
+                return {"image_prefix": check_cache(
+                    model, toks, 512, bf16_drift_limit(model.cfg.n_layers),
+                    FAMILY_STEPS, image_embeds=image)}
+        n_layers = (get_smoke_config if smoke else get_config)(arch).n_layers
+        serve = phase_serve(seed, dev, gen, arch=arch, smoke=smoke,
+                            line=("models", {"sub": arch, "reduced": []}),
+                            steps=FAMILY_STEPS,
+                            bf16_limit=bf16_drift_limit(n_layers),
+                            extra=extra)
+        counts.append(serve["counts"])
+        rows += kernels_serve(serve, reps=20, case=f"{arch} head")
+        del serve
+        torch.cuda.empty_cache()
+    counts.append(models_whisper(seed, dev, gen, smoke))
+    return counts, rows
+
+
+def models_whisper(seed: int, dev, gen, smoke: bool = False) -> dict:
+    """whisper-tiny, bf16 then f32 on the same weights: 1500 random
+    frames and a wave of 4 prompts through ``prefill`` and 16 decode
+    steps, against a fresh forward."""
+    t_sub = time.perf_counter()
+    cfg = (get_smoke_config if smoke else get_config)(AUDIO_ARCH)
+    reset_launch_counts()
+    model = build_model(cfg, torch.bfloat16, device=dev)
+    params = model.init(gen)
+    rng = np.random.default_rng(seed + 11)
+    toks = left_padded([[1] + rng.integers(2, cfg.vocab,
+                                           rng.integers(2, 9)).tolist()
+                        for _ in range(4)])
+    frames = torch.randn((4, cfg.encoder.n_frames, cfg.d_model),
+                         generator=gen, device=dev)
+    checks = [check_cache(model, toks, 128, bf16_drift_limit(cfg.n_layers),
+                          FAMILY_STEPS, frames=frames)]
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        _, cache = model.prefill(toks, max_len=128, frames=frames)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        nxt = torch.ones((4, 1), dtype=torch.long, device=dev)
+        step_p50 = host_p50_ms(lambda: model.decode_step(cache, nxt), 10)
+    model32 = build_model(cfg, torch.float32, device=dev)
+    model32.load_state_dict(params)
+    checks.append(check_cache(model32, toks, 128, 2e-4, FAMILY_STEPS,
+                              frames=frames))
+    counts = launch_counts()
+    expect_counts("whisper", counts, bcsr_matmul=0, cyclic_encode=0,
+                  decode_matmul=0)
+    emit("models", sub=AUDIO_ARCH, arch=cfg.name, reduced=[],
+         dtype="bfloat16", layers=cfg.n_layers,
+         encoder_layers=cfg.encoder.n_layers, frames=cfg.encoder.n_frames,
+         d_model=cfg.d_model, vocab=cfg.vocab,
+         params_m=sum(p.numel() for p in model.parameters()) / 1e6,
+         prefill_ms=prefill_ms, decode_step_p50_ms=step_p50, cache=checks,
+         launches=counts, wall_s=time.perf_counter() - t_sub)
+    return counts
+
+
+def phase_models(seed: int, dev, gen, smoke: bool = False
+                 ) -> tuple[dict, list]:
+    """Phase 10: granite-moe-1b served at full depth and width through the
+    launcher (its coded head, its kernel rows); ``CodedMoE`` on one of its
+    layers in process and through a fleet; ``CodedAggregator`` over one
+    layer's parameters in process, on a cluster and on that fleet; the
+    other families.  ``smoke``: the smoke configs, for a rehearsal on the
+    CPU.  -> (the path's launches, kernel rows)."""
+    serve = phase_serve(seed, dev, gen, arch=MOE_ARCH, smoke=smoke,
+                        line=("models", {"sub": "moe-serve", "reduced": []}))
+    totals = [serve["counts"]]
+    rows = kernels_serve(serve, reps=20, case="granite head")
+    moe_counts, moe_rows, fleet, masks = models_coded_moe(seed, dev, serve)
+    totals.append(moe_counts)
+    rows += moe_rows
+    try:
+        totals.append(models_coded_grads(seed, dev, gen, serve["model"],
+                                         fleet, masks))
+    finally:
+        fleet.close()
+    del serve
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    family_counts, family_rows = models_families(seed, dev, gen, smoke)
+    totals += family_counts
+    counts = add_counts(*totals)
+    emit("models", sub="total", launches=counts)
+    return counts, rows + family_rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2786,6 +3357,9 @@ def main(argv=None) -> int:
     rows += front_rows
     del edge
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    models_counts, models_rows = phase_models(args.seed, dev, gen)
+    rows += models_rows
 
     if args.parent is not None:
         root = Path(__file__).resolve().parent
@@ -2807,7 +3381,8 @@ def main(argv=None) -> int:
             "replaces": replaces,
             "launches": (mv_counts[name] + mm_counts[name]
                          + serve_counts[name] + cluster_counts[name]
-                         + edge_counts[name] + front_counts[name]),
+                         + edge_counts[name] + front_counts[name]
+                         + models_counts[name]),
             "max_abs_err": main_row["max_abs_err"], "ms": main_row["ms"],
             "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],

@@ -14,15 +14,16 @@ microbatched rounds (the port of ``repro.api.fleet``).
 
 A ``CodedFleet`` owns one persistent transport + worker set and one
 long-lived dispatcher event loop; every consumer of coded compute (the
-serve engine's LM head via ``CodedConfig.fleet``; in the JAX package
-also ``CodedMoE`` experts and ``CodedAggregator``, not ported yet)
-attaches to the same session instead of hoarding its own workers.  Its
-workers run on the card (``bcsr_matmul``) unless the caller asks for
-the CPU (``CodedFleet(..., device="cpu")``); a card plan needs card
-workers and a host plan host workers.  Submissions return ``CodedFuture``s (``result`` / ``done`` /
-``add_done_callback`` / ``cancel``) with multiple rounds in flight,
-bounded-queue backpressure, per-plan deadlines, and matvec -> matmat
-microbatching (queued matvecs against one plan coalesce into a wider
+serve engine's LM head via ``CodedConfig.fleet``, ``CodedMoE(fleet=)``'s
+expert plans and ``CodedAggregator.to_cluster(fleet=)``) attaches to the
+same session instead of hoarding its own workers.  Its workers run on
+the card (``bcsr_matmul``) unless the caller asks for the CPU
+(``CodedFleet(..., device="cpu")``); a card plan needs card workers and
+a host plan host workers (an aggregation-only plan, which ships no
+shards, attaches to either).  Submissions return ``CodedFuture``s
+(``result`` / ``done`` / ``add_done_callback`` / ``cancel``) with
+multiple rounds in flight, bounded-queue backpressure, per-plan
+deadlines, and matvec -> matmat microbatching (queued matvecs against one plan coalesce into a wider
 round and decode back out bitwise-identically).  The in-flight cap
 defaults from the ``REPRO_FLEET_MAX_INFLIGHT`` env var.
 

@@ -22,8 +22,8 @@ parity mode: only those rows are dispatched and the decode uses
 exactly that pattern, so the result is bitwise the in-process packed
 backend's (the acceptance check for the whole wire/worker/fleet stack,
 on every transport).  The workers follow the plan: a card plan
-(``backend="cuda"``) is served by card workers on the plan's device, any
-other plan by host workers.
+(``backend="cuda"``), or an aggregation-only plan on the card, is served
+by card workers on the plan's device, any other plan by host workers.
 
 New code should hold a ``CodedFleet`` directly (``repro_torch.api.fleet``):
 shared workers across plans, async futures, pipelined rounds and
@@ -32,7 +32,11 @@ matvec microbatching all live there.
 
 from __future__ import annotations
 
-from .fleet import ClusterReport, CodedFleet  # noqa: F401 - re-export
+from .fleet import (  # noqa: F401 - re-export
+    ClusterReport,
+    CodedFleet,
+    plan_workers,
+)
 
 
 class ClusterPlan:
@@ -55,12 +59,11 @@ class ClusterPlan:
         if not 1 <= w <= plan.n:
             raise ValueError(f"n_workers must be in [1, {plan.n}], got {w}")
         # the workers' compute follows the plan
-        card = plan.backend == "cuda"
+        backend, device = plan_workers(plan)
         self.fleet = CodedFleet(
             w, transport=transport, faults=faults, heartbeat_s=heartbeat_s,
             suspect_after=suspect_after, max_inflight=1, microbatch=False,
-            device=plan.device if card else "cpu",
-            backend="cuda" if card else "packed")
+            device=device, backend=backend)
         try:
             self.handle = self.fleet.attach(plan, deadline=deadline)
         except BaseException:

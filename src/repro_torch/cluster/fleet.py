@@ -236,9 +236,11 @@ def _on_card(plan) -> bool:
 def plan_workers(plan) -> tuple[str, torch.device]:
     """The workers a plan needs: (backend, device).  A card plan gets
     card workers on its own device (the kernel's plain version when that
-    device is the CPU); any other plan gets host workers, whose bitwise
-    parity holds only on ``packed``."""
-    if _on_card(plan):
+    device is the CPU), and so does an aggregation-only plan on the card
+    (its workers multiply nothing); any other plan gets host workers,
+    whose bitwise parity holds only on ``packed``."""
+    if _on_card(plan) or (plan.executor is None
+                          and plan.device.type == "cuda"):
         return "cuda", plan.device
     return "packed", torch.device("cpu")
 
@@ -904,7 +906,8 @@ class CodedFleet:
         if self._closed:
             raise RuntimeError("fleet has been closed")
         want, _ = plan_workers(plan)
-        if self.backend != want:
+        # an aggregation-only plan ships no shards: any workers serve it
+        if plan.executor is not None and self.backend != want:
             # a card plan's workers never run on the host, and a host
             # plan keeps its bitwise parity only on host workers
             raise ValueError(

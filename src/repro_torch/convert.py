@@ -18,21 +18,38 @@ A model's weights cross the same way.  The JAX ``TransformerLM``'s
 params tree (``jax.tree.map(np.asarray, params)``) is::
 
     {"embed": (vocab, d),
-     "groups": {"l{i}": {"norm1": (G, d), "norm2": (G, d),
-                         "attn": {"wq": (G, d, H*hd), "wk": (G, d, KV*hd),
-                                  "wv": (G, d, KV*hd), "wo": (G, H*hd, d),
-                                  "q_norm": (G, hd), "k_norm": (G, hd)},
-                         "mlp": {"w_gate": (G, d, f), "w_up": (G, d, f),
-                                 "w_down": (G, f, d)}}},
+     "groups": {"l{i}": {...}},     # one entry per non-S pattern position
+     "shared": {...},               # the hybrid's S block, unstacked
      "final_norm": (d,),
      "head": (d, vocab)}            # untied heads only
 
 with every ``groups`` leaf stacked over the G = ``n_groups`` repeats of
-the layer pattern (``q_norm``/``k_norm`` with qk-norm only, no
-``w_gate`` for a gelu FFN).  The port's state dict unstacks them: layer
+the layer pattern.  An attention position (A/L/G) holds::
+
+    {"norm1": (G, d), "norm2": (G, d),
+     "attn": {"wq": (G, d, H*hd), "wk": (G, d, KV*hd), "wv": (G, d, KV*hd),
+              "wo": (G, H*hd, d), "q_norm": (G, hd), "k_norm": (G, hd)},
+     "mlp": {"w_gate": (G, d, f), "w_up": (G, d, f), "w_down": (G, f, d)}}
+
+(``q_norm``/``k_norm`` with qk-norm only, no ``w_gate`` for a gelu FFN);
+with MoE, ``"moe": {"router": (G, d, E) f32, "w_gate": (G, E, d, h),
+"w_up", "w_down": (G, E, h, d), "shared": {"w_gate", "w_up",
+"w_down"}}`` (``shared`` with shared experts only) in place of ``mlp``.
+A mamba position (M) holds ``{"norm": (G, d), "mamba": {"w_in", "conv_w",
+"conv_b", "A_log", "D", "dt_bias", "norm_w", "w_out"}}`` (``A_log``,
+``D``, ``dt_bias`` f32).  The ``S`` block is an attention position's
+dict without the G axis.  The port's state dict unstacks them: layer
 ``g * len(pattern) + i`` is ``groups/l{i}`` at index g, under the keys
-``layers.{L}.norm1``, ``layers.{L}.attn.wq``, ``layers.{L}.mlp.w_up``
-and so on; ``embed``, ``final_norm`` and ``head`` keep their names.
+``layers.{L}.norm1``, ``layers.{L}.attn.wq``, ``layers.{L}.moe.shared.
+w_up``, ``layers.{L}.mamba.A_log`` and so on; the S block's keys are
+``shared.*``; ``embed``, ``final_norm`` and ``head`` keep their names.
+
+The JAX ``WhisperLM``'s tree is ``{"embed", "enc": {...}, "enc_norm",
+"groups": {...}, "final_norm"}``, whose ``enc`` leaves are stacked over
+the encoder's layers (``norm1``, ``norm2``, ``attn``, ``mlp``) and whose
+``groups`` leaves over the decoder's (those and ``norm_x``, ``xattn``);
+the port's keys are ``enc.{j}.*`` and ``layers.{L}.*``.
+
 ``model_params_from_reference`` and ``model_params_to_reference`` map
 one onto the other; bf16 keeps its bits both ways.
 
@@ -103,9 +120,11 @@ def plan_from_reference_arrays(meta: dict, arrays: dict, *,
 
 
 def _groups_keys(cfg):
-    """(layer index, pattern position, group) for every layer."""
+    """(layer index, pattern position, group) for every layer the
+    reference stacks under ``groups/l{i}`` (an S position has none)."""
     p = len(cfg.pattern)
-    return [(g * p + i, i, g) for g in range(cfg.n_groups) for i in range(p)]
+    return [(g * p + i, i, g) for g in range(cfg.n_groups) for i in range(p)
+            if cfg.pattern[i] != "S"]
 
 
 def _flatten(tree: dict, prefix: str = ""):
@@ -116,18 +135,32 @@ def _flatten(tree: dict, prefix: str = ""):
             yield f"{prefix}{key}", val
 
 
+def _unstack(out: dict, tree: dict, prefix: str, index: int, dev) -> None:
+    """``tree``'s leaves at ``index`` of their stacked axis, under
+    ``prefix``."""
+    for name, arr in _flatten(tree):
+        out[f"{prefix}{name}"] = _tensor(np.asarray(arr)[index], dev)
+
+
 def model_params_from_reference(params: dict, cfg, *, device=None) -> dict:
     """The port's state dict for the JAX model params ``params`` (numpy
     arrays, in the layout of the module docstring), on ``device``."""
     dev = resolve_device(device)
-    out = {"embed": _tensor(params["embed"], dev),
-           "final_norm": _tensor(params["final_norm"], dev)}
-    if "head" in params:
-        out["head"] = _tensor(params["head"], dev)
+    out = {name: _tensor(params[name], dev)
+           for name in ("embed", "final_norm", "enc_norm", "head")
+           if name in params}
     groups = params["groups"]
+    if cfg.family == "audio":
+        for j in range(cfg.encoder.n_layers):
+            _unstack(out, params["enc"], f"enc.{j}.", j, dev)
+        for layer in range(cfg.n_layers):
+            _unstack(out, groups, f"layers.{layer}.", layer, dev)
+        return out
     for layer, i, g in _groups_keys(cfg):
-        for name, arr in _flatten(groups[f"l{i}"]):
-            out[f"layers.{layer}.{name}"] = _tensor(np.asarray(arr)[g], dev)
+        _unstack(out, groups[f"l{i}"], f"layers.{layer}.", g, dev)
+    if "shared" in params:
+        for name, arr in _flatten(params["shared"]):
+            out[f"shared.{name}"] = _tensor(arr, dev)
     return out
 
 
@@ -142,26 +175,47 @@ def _array(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def model_params_to_reference(state_dict: dict, cfg) -> dict:
-    """The JAX model params tree (numpy arrays) for the port's state
-    dict: the inverse of ``model_params_from_reference``."""
-    out = {"embed": _array(state_dict["embed"]),
-           "final_norm": _array(state_dict["final_norm"])}
-    if "head" in state_dict:
-        out["head"] = _array(state_dict["head"])
-    stacked: dict = {}
-    for layer, i, _ in _groups_keys(cfg):
-        prefix = f"layers.{layer}."
-        for key, val in state_dict.items():
-            if key.startswith(prefix):
-                stacked.setdefault((i, key[len(prefix):]), []).append(
-                    _array(val))
-    groups: dict = {}
-    for (i, name), arrs in stacked.items():
-        node = groups.setdefault(f"l{i}", {})
+def _nest(flat: dict) -> dict:
+    """{"a.b.c": leaf} -> {"a": {"b": {"c": leaf}}}."""
+    tree: dict = {}
+    for name, val in flat.items():
+        node = tree
         *path, leaf = name.split(".")
         for part in path:
             node = node.setdefault(part, {})
-        node[leaf] = np.stack(arrs)
-    out["groups"] = groups
+        node[leaf] = val
+    return tree
+
+
+def _stacked(state_dict: dict, prefixes: list[str]) -> dict:
+    """The leaves under each of ``prefixes``, stacked in that order."""
+    leaves: dict = {}
+    for prefix in prefixes:
+        for key, val in state_dict.items():
+            if key.startswith(prefix):
+                leaves.setdefault(key[len(prefix):], []).append(_array(val))
+    return _nest({name: np.stack(arrs) for name, arrs in leaves.items()})
+
+
+def model_params_to_reference(state_dict: dict, cfg) -> dict:
+    """The JAX model params tree (numpy arrays) for the port's state
+    dict: the inverse of ``model_params_from_reference``."""
+    out = {name: _array(state_dict[name])
+           for name in ("embed", "final_norm", "enc_norm", "head")
+           if name in state_dict}
+    if cfg.family == "audio":
+        out["enc"] = _stacked(state_dict, [
+            f"enc.{j}." for j in range(cfg.encoder.n_layers)])
+        out["groups"] = _stacked(state_dict, [
+            f"layers.{layer}." for layer in range(cfg.n_layers)])
+        return out
+    p = len(cfg.pattern)
+    out["groups"] = {
+        f"l{i}": _stacked(state_dict, [
+            f"layers.{g * p + i}." for g in range(cfg.n_groups)])
+        for i, kind in enumerate(cfg.pattern) if kind != "S"}
+    if "S" in cfg.pattern:
+        out["shared"] = _nest({key[len("shared."):]: _array(val)
+                               for key, val in state_dict.items()
+                               if key.startswith("shared.")})
     return out

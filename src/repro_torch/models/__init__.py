@@ -1,5 +1,4 @@
-"""Model zoo: the dense decoder-only LM (other families raise
-``NotImplementedError`` until they are ported)."""
+"""Model zoo: unified LM covering dense / moe / ssm / hybrid / vlm / audio."""
 
 from .api import (  # noqa: F401
     build_model,
@@ -9,3 +8,4 @@ from .api import (  # noqa: F401
     train_batch_specs,
 )
 from .transformer import TransformerLM  # noqa: F401
+from .whisper import WhisperLM  # noqa: F401

@@ -11,13 +11,16 @@ import torch
 
 from ..configs.base import ModelConfig, ShapeConfig
 from .transformer import TransformerLM
+from .whisper import WhisperLM
 
 
 def build_model(cfg: ModelConfig, dtype=torch.bfloat16, device=None
-                ) -> TransformerLM:
+                ) -> TransformerLM | WhisperLM:
     """The model of ``cfg`` with its weights allocated (not drawn: call
-    ``init``) on ``device``, by default the card.  Families the port has
-    not yet raise ``NotImplementedError``."""
+    ``init``) on ``device``, by default the card: ``WhisperLM`` for the
+    audio family, ``TransformerLM`` for every other."""
+    if cfg.family == "audio":
+        return WhisperLM(cfg, dtype=dtype, device=device)
     return TransformerLM(cfg, dtype=dtype, device=device)
 
 

@@ -1,0 +1,305 @@
+"""Mixture-of-Experts layer with sort-based token dispatch, and its coded
+(straggler-resilient) expert FFN.
+
+The counterpart of ``repro.models.moe`` without expert parallelism
+(``moe_block_ep`` waits for the mesh slice, ROADMAP.md §1 item 14):
+
+  * Dispatch is gather-based: each token's slot comes from an argsort +
+    rank (integer ops), tokens are scattered into an (E, C, d) buffer,
+    the expert FFN runs batched, and the slots are gathered back.
+  * Capacity-and-drop (cf * T * top_k / E slots per expert, rounded up
+    to a multiple of 4); a dropped slot falls back to the residual
+    stream.  The reference's out-of-range scatter (``mode="drop"``) has
+    no torch counterpart, so the dispatch buffer has one spare row at
+    ``E * C`` that takes every dropped slot and is cut off.
+  * Every token has exactly ``top_k`` slots in token order, so the
+    combine adds each token's slots in slot order (the reference's
+    ``segment_sum`` order), with no atomics.
+  * Routing logits are f32 and stay full f32 on the card (no TF32):
+    routing is discontinuous, and a logit off in its last bit can flip
+    the k-th expert.
+
+``CodedMoE`` runs every expert weight matmul through a compiled
+``repro_torch.api.CodedPlan``: on the card (``backend="auto"`` resolves
+to ``cuda``) each plan's compile is one ``cyclic_encode`` and each
+expert matmul one ``bcsr_matmul`` + one ``decode_matmul``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import MoEConfig
+from .layers import normal_
+
+
+def moe_param_shapes(d_model: int, moe: MoEConfig) -> dict:
+    """name -> shape; ``router`` is always f32, ``shared`` a nested dict
+    when the config has shared experts."""
+    e, h = moe.n_experts, moe.d_expert
+    shapes = {"router": (d_model, e), "w_gate": (e, d_model, h),
+              "w_up": (e, d_model, h), "w_down": (e, h, d_model)}
+    if moe.n_shared_experts:
+        hs = moe.n_shared_experts * h
+        shapes["shared"] = {"w_gate": (d_model, hs), "w_up": (d_model, hs),
+                            "w_down": (hs, d_model)}
+    return shapes
+
+
+def init_moe_params(p: dict, d_model: int, moe: MoEConfig,
+                    gen: torch.Generator) -> dict:
+    """Draw an MoE layer's weights into the tensors of ``p`` with the
+    reference's scales: 1/sqrt(d_model) into the experts and the router,
+    1/sqrt(d_expert) out (the shared experts' too)."""
+    si, so = d_model ** -0.5, moe.d_expert ** -0.5
+    normal_(p["router"], si, gen)
+    for name in ("w_gate", "w_up"):
+        normal_(p[name], si, gen)
+    normal_(p["w_down"], so, gen)
+    if moe.n_shared_experts:
+        sp = p["shared"]
+        normal_(sp["w_gate"], si, gen)
+        normal_(sp["w_up"], si, gen)
+        normal_(sp["w_down"], so, gen)
+    return p
+
+
+def _capacity(tokens: int, moe: MoEConfig) -> int:
+    c = int(tokens * moe.top_k * moe.capacity_factor / moe.n_experts) + 1
+    return max(4, -(-c // 4) * 4)    # round up to a multiple of 4
+
+
+@contextlib.contextmanager
+def _full_f32():
+    """f32 products in full f32 on the card while the block runs."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _route_tokens(router: torch.Tensor, tokens: torch.Tensor,
+                  moe: MoEConfig, cap: int):
+    """Top-k routing + sort-based slot assignment (integer only).
+
+    Shared by the dense (``moe_block``) and coded (``CodedMoE``) expert
+    paths so the dispatch semantics cannot diverge.  Returns ``(aux, fp,
+    tok_id, keep, dest)``: the Switch load-balancing aux loss, flattened
+    combine weights, token ids, capacity-keep mask and slot destinations
+    (``E * cap`` -> dropped).
+    """
+    t = tokens.shape[0]
+    e, k = moe.n_experts, moe.top_k
+    dev = tokens.device
+    with _full_f32():
+        logits = torch.einsum("td,de->te", tokens.float(), router.float())
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_e = torch.topk(probs, k, dim=-1)             # (t, k)
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+
+    # load-balancing auxiliary loss (Switch): top-1 share x mean prob
+    frac_tokens = F.one_hot(top_e[:, 0], e).float().mean(dim=0)
+    aux = e * torch.sum(frac_tokens * probs.mean(dim=0))
+
+    fe = top_e.reshape(-1)                                   # (t*k,)
+    fp = top_p.reshape(-1)
+    tok_id = torch.arange(t, device=dev).repeat_interleave(k)
+    order = torch.argsort(fe, stable=True)
+    counts = torch.bincount(fe, minlength=e)
+    starts = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)[:-1]])
+    ranks = torch.arange(t * k, device=dev) - starts[fe[order]]
+    pos = torch.zeros(t * k, dtype=torch.long, device=dev)
+    pos[order] = ranks
+    keep = pos < cap
+    dest = torch.where(keep, fe * cap + pos, e * cap)        # -> dropped
+    return aux, fp, tok_id, keep, dest
+
+
+def _dispatch(tokens: torch.Tensor, tok_id, dest, e: int, cap: int
+              ) -> torch.Tensor:
+    """Tokens into their slots -> (E, cap, d); dropped slots land on the
+    spare row ``E * cap``, which is cut off."""
+    d = tokens.shape[1]
+    buf = tokens.new_zeros((e * cap + 1, d))
+    buf[dest] = tokens[tok_id]
+    return buf[: e * cap].reshape(e, cap, d)
+
+
+def _combine_slots(ye: torch.Tensor, fp, tok_id, keep, dest, t: int, dtype
+                   ) -> torch.Tensor:
+    """Expert outputs (E, C, d) -> per-token combine (t, d).  Token
+    ``tok_id[j]`` owns slots ``j`` in blocks of top_k, so the sum over
+    them is taken in slot order, as the reference's ``segment_sum``."""
+    n_slots = ye.shape[0] * ye.shape[1]
+    y_flat = ye.reshape(n_slots, -1)
+    y_slot = torch.where(keep[:, None],
+                         y_flat[torch.clamp(dest, max=n_slots - 1)],
+                         torch.zeros((), dtype=y_flat.dtype,
+                                     device=y_flat.device))
+    slots = (y_slot * fp[:, None].to(dtype)).reshape(t, -1, y_flat.shape[1])
+    out = slots[:, 0]
+    for j in range(1, slots.shape[1]):
+        out = out + slots[:, j]
+    return out
+
+
+def _shared_expert(sp: dict, tokens: torch.Tensor) -> torch.Tensor:
+    gs = torch.einsum("td,dh->th", tokens, sp["w_gate"])
+    us = torch.einsum("td,dh->th", tokens, sp["w_up"])
+    return torch.einsum("th,hd->td", F.silu(gs) * us, sp["w_down"])
+
+
+def moe_block(p: dict, x: torch.Tensor, moe: MoEConfig
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, d) -> (out (B, S, d), aux_loss scalar)."""
+    b, s, d = x.shape
+    t = b * s
+    e = moe.n_experts
+    cap = _capacity(t, moe)
+    tokens = x.reshape(t, d)
+
+    aux, fp, tok_id, keep, dest = _route_tokens(p["router"], tokens, moe, cap)
+
+    # --- dispatch -> expert FFN -> combine ----------------------------------
+    xe = _dispatch(tokens, tok_id, dest, e, cap)
+    g = torch.einsum("ecd,edh->ech", xe, p["w_gate"])
+    u = torch.einsum("ecd,edh->ech", xe, p["w_up"])
+    ye = torch.einsum("ech,ehd->ecd", F.silu(g) * u, p["w_down"])
+    out = _combine_slots(ye, fp, tok_id, keep, dest, t, x.dtype)
+
+    if moe.n_shared_experts:
+        out = out + _shared_expert(p["shared"], tokens)
+
+    return out.reshape(b, s, d), aux
+
+
+def moe_apply(p: dict, x: torch.Tensor, moe: MoEConfig):
+    """The MoE layer on one device: ``moe_block``.  The reference
+    dispatches to its expert-parallel ``moe_block_ep`` when a mesh
+    context is set; that path waits for the port's mesh layer (ROADMAP.md
+    §1 item 14)."""
+    return moe_block(p, x, moe)
+
+
+# ---------------------------------------------------------------------------
+# Straggler-resilient expert FFN (coded plan path)
+# ---------------------------------------------------------------------------
+
+
+class CodedMoE:
+    """Expert FFN with straggler resilience: every expert weight matmul
+    runs through a precompiled ``repro_torch.api.CodedPlan``.
+
+    Each expert's three (d x h / h x d) matrices are plan-compiled once
+    (scheme + encoding + packed shards + backend, seed ``seed + i`` for
+    expert i) for ``n_workers`` virtual workers tolerating
+    ``stragglers`` losses per matmul -- the MoE analogue of the coded LM
+    head.  ``backend="auto"`` picks ``cuda`` for weights on the card,
+    else the density pick per weight.
+
+    Routing (top-k, sort-based slotting, capacity drop) is identical to
+    ``moe_block``.  Per step a single ``done`` mask applies to all expert
+    matmuls (the workers are the same physical devices); outputs match
+    ``moe_block`` to f32 tolerance under any <= s straggler pattern.
+
+    Pass ``fleet=`` (a ``repro_torch.api.fleet.CodedFleet``) to
+    *dispatch* the expert matmuls instead of computing them in-process:
+    every expert plan attaches to the shared session (the same workers
+    that serve the coded LM head), all experts' gate+up products go in
+    flight together, and each expert's down product is submitted the
+    moment its activation is ready.  The fleet's owner closes it;
+    ``detach()`` withdraws this layer's plans early.
+    """
+
+    def __init__(self, p: dict, moe: MoEConfig, n_workers: int = 6,
+                 stragglers: int = 2, seed: int = 0,
+                 scheme: str = "proposed", backend: str | None = "auto",
+                 fleet=None):
+        from ..api.plan import compile_plan  # noqa: PLC0415 - layering
+        from ..api.schemes import make_scheme  # noqa: PLC0415
+
+        self.p = p
+        self.moe = moe
+        self.n = n_workers
+        self.s = stragglers
+        self.fleet = fleet
+        sch = make_scheme(scheme, n=n_workers, k_A=n_workers - stragglers)
+        e = moe.n_experts
+
+        def plans(w):          # w: (E, din, dout) stacked expert weights
+            built = [compile_plan(w[i], scheme=sch, seed=seed + i,
+                                  backend=backend) for i in range(e)]
+            if fleet is None:
+                return built
+            return [fleet.attach(pl) for pl in built]
+
+        self.gate = plans(p["w_gate"])
+        self.up = plans(p["w_up"])
+        self.down = plans(p["w_down"])
+
+    def backends(self) -> list[str]:
+        """Resolved backend per expert-gate plan (density may differ)."""
+        return [pl.plan.backend if self.fleet is not None else pl.backend
+                for pl in self.gate]
+
+    def detach(self) -> None:
+        """Withdraw this layer's plans from the shared fleet (no-op for
+        the in-process path)."""
+        if self.fleet is None:
+            return
+        for handle in self.gate + self.up + self.down:
+            handle.detach()
+
+    def __call__(self, x: torch.Tensor, done=None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+        """x (B, S, d) -> (out, aux); ``done`` masks the coded workers."""
+        p, moe = self.p, self.moe
+        b, s, d = x.shape
+        t = b * s
+        e = moe.n_experts
+        cap = _capacity(t, moe)
+        tokens = x.reshape(t, d)
+
+        aux, fp, tok_id, keep, dest = _route_tokens(
+            p["router"], tokens, moe, cap)
+        xe = _dispatch(tokens, tok_id, dest, e, cap)
+
+        if self.fleet is not None:
+            outs = self._dispatch_experts(xe, done)
+        else:
+            # --- coded expert FFN: three plan.matvec calls per expert --
+            outs = []
+            for i in range(e):
+                g = self.gate[i].matvec(xe[i], done)      # (cap, h)
+                u = self.up[i].matvec(xe[i], done)
+                y = self.down[i].matvec((F.silu(g) * u).to(xe.dtype), done)
+                outs.append(y)
+        ye = torch.stack(outs).to(x.dtype)                # (e, cap, d)
+        out = _combine_slots(ye, fp, tok_id, keep, dest, t, x.dtype)
+
+        if moe.n_shared_experts:
+            out = out + _shared_expert(p["shared"], tokens)
+        return out.reshape(b, s, d), aux
+
+    def _dispatch_experts(self, xe: torch.Tensor, done) -> list:
+        """Fleet path: pipeline every expert's FFN through futures.
+
+        All gate+up rounds go in flight at once; each down round is
+        submitted as soon as its expert's activation is available, so
+        expert i+1's gate product overlaps expert i's down product on
+        the shared workers.
+        """
+        e = xe.shape[0]
+        gate_f = [self.gate[i].submit_matvec(xe[i], done) for i in range(e)]
+        up_f = [self.up[i].submit_matvec(xe[i], done) for i in range(e)]
+        down_f = []
+        for i in range(e):
+            h = (F.silu(gate_f[i].result())
+                 * up_f[i].result()).to(xe.dtype)
+            down_f.append(self.down[i].submit_matvec(h, done))
+        return [f.result() for f in down_f]

@@ -1,28 +1,37 @@
-"""Decoder-only LM of the ``dense`` family, as a ``torch.nn.Module``.
+"""Unified decoder-only LM covering the dense / moe / ssm / hybrid / vlm
+families, as a ``torch.nn.Module``.
 
-The counterpart of ``repro.models.transformer.TransformerLM`` for the
-attention layer kinds of the dense family:
+The counterpart of ``repro.models.transformer.TransformerLM``.  The
+layer stack repeats a *pattern* of layer kinds ``n_groups`` times:
 
   dense (qwen3, phi3):   ("A",) x n_layers
   gemma3:                ("L","L","L","L","L","G") x 8   (5:1 local:global)
+  mamba2:                ("M",) x 48
+  zamba2:                ("M","M","M","M","M","S") x 9   (S = shared block)
 
 ``L`` layers attend within ``cfg.attn.window`` and keep a ring-buffer
-KV cache of that length; ``A`` and ``G`` layers attend to the whole
-context.  The reference stacks each pattern position's weights over
-``n_groups`` and scans; the port keeps one module per layer in an
-``nn.ModuleList`` (layer ``g * len(pattern) + i`` is the reference's
-``groups/l{i}`` at group ``g``).  Weights keep the reference's
-``(d_in, d_out)`` orientation, so ``repro_torch.convert`` carries them
-across as plain copies.
+KV cache of that length; ``A``, ``G`` and ``S`` layers attend to the
+whole context; ``M`` layers are Mamba-2 (SSD) blocks.  With ``cfg.moe``
+every attention layer but ``S`` has an MoE FFN (``moe``) in place of
+its dense one (``mlp``).  ``S`` is the hybrid's shared attention layer:
+one ``Block`` (the module's ``shared``) applied at every ``S`` position
+with the same weights, each position keeping its own KV cache.  A vlm
+config prepends ``image_embeds`` (the stub CLIP tokens) to the token
+embeddings.
 
-The families of later slices raise ``NotImplementedError``: mamba2
-layers (``M``), the hybrid's shared layer (``S``), MoE layers, the
-vision prefix and the whisper encoder (ROADMAP.md §1 item 12), and the
-training loss (item 13).
+The reference stacks each pattern position's weights over ``n_groups``
+and scans; the port keeps one module per layer in an ``nn.ModuleList``
+(layer ``g * len(pattern) + i`` is the reference's ``groups/l{i}`` at
+group ``g``; an ``S`` position holds an empty ``SharedSlot``).  Weights
+keep the reference's ``(d_in, d_out)`` orientation, so
+``repro_torch.convert`` carries them across as plain copies.  The
+training loss waits for the training slice (ROADMAP.md §1 item 13).
 
-Serving state is a dict ``{"layers": [{"k", "v"} per layer], "step":
-int}``; ``step`` is a host int, so a decode step needs no device-to-
-host copy, and ``decode_step`` writes the cache tensors in place.
+Serving state is a dict ``{"layers": [per-layer cache], "step": int}``:
+``{"k", "v"}`` for an attention layer, ``{"conv", "state"}`` for a
+mamba layer.  ``step`` is a host int, so a decode step needs no
+device-to-host copy, and ``decode_step`` writes the cache tensors in
+place.
 """
 
 from __future__ import annotations
@@ -45,38 +54,34 @@ from .layers import (
     rms_norm,
     self_attention,
 )
+from .mamba2 import (
+    F32_PARAMS,
+    init_mamba_cache,
+    init_mamba_params,
+    mamba_block,
+    mamba_decode_step,
+    mamba_param_shapes,
+    mamba_prefill,
+)
+from .moe import init_moe_params, moe_apply, moe_param_shapes
 
-ATTENTION_KINDS = ("A", "L", "G")
-
-# what a config of each family needs beyond the dense path
-_LATER = {
-    "moe": "the MoE layers (models/moe.py)",
-    "ssm": "the mamba2 layers (models/mamba2.py)",
-    "hybrid": "the mamba2 layers and the shared attention layer S",
-    "audio": "WhisperLM (models/whisper.py)",
-    "vlm": "the vision-token prefix",
-}
-
-
-def unported(cfg: ModelConfig) -> str | None:
-    """Why the port cannot build ``cfg`` yet, or None when it can."""
-    if cfg.family != "dense":
-        what = _LATER.get(cfg.family, f"family {cfg.family!r}")
-    elif cfg.moe is not None:
-        what = _LATER["moe"]
-    elif set(cfg.pattern) - set(ATTENTION_KINDS):
-        what = f"layer kinds {sorted(set(cfg.pattern) - set(ATTENTION_KINDS))}"
-    else:
-        return None
-    return (f"{cfg.name}: the {cfg.family} family needs {what}, which the "
-            "port has not yet (ROADMAP.md §1 item 12)")
+LAYER_KINDS = ("A", "L", "G", "S", "M")
 
 
-def _params(shapes: dict, dtype, device) -> nn.ParameterDict:
-    return nn.ParameterDict({
-        name: nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                           requires_grad=False)
-        for name, shape in shapes.items()})
+def _params(shapes: dict, dtype, device, f32: tuple = ()
+            ) -> nn.ParameterDict:
+    """Frozen parameters of ``shapes`` (a nested dict becomes a nested
+    ``ParameterDict``); the names in ``f32`` are f32 whatever ``dtype``."""
+    out = {}
+    for name, shape in shapes.items():
+        if isinstance(shape, dict):
+            out[name] = _params(shape, dtype, device)
+        else:
+            out[name] = nn.Parameter(
+                torch.empty(shape, dtype=torch.float32 if name in f32
+                            else dtype, device=device),
+                requires_grad=False)
+    return nn.ParameterDict(out)
 
 
 def _vector(d: int, dtype, device) -> nn.Parameter:
@@ -85,25 +90,67 @@ def _vector(d: int, dtype, device) -> nn.Parameter:
 
 
 class Block(nn.Module):
-    """One attention layer: pre-norm attention, then pre-norm FFN."""
+    """One attention layer: pre-norm attention, then a pre-norm FFN
+    (``moe`` for an MoE config's A/L/G layers, else ``mlp``)."""
 
     def __init__(self, cfg: ModelConfig, kind: str, dtype, device):
         super().__init__()
         d = cfg.d_model
+        self.kind = kind
         self.window = cfg.attn.window if kind == "L" else None
         self.norm1 = _vector(d, dtype, device)
         self.norm2 = _vector(d, dtype, device)
         self.attn = _params(attn_param_shapes(d, cfg.attn), dtype, device)
-        self.mlp = _params(mlp_param_shapes(d, cfg.d_ff, cfg.act), dtype,
-                           device)
+        if cfg.moe is not None and kind != "S":
+            self.moe = _params(moe_param_shapes(d, cfg.moe), dtype, device,
+                               f32=("router",))
+        else:
+            self.mlp = _params(mlp_param_shapes(d, cfg.d_ff, cfg.act), dtype,
+                               device)
+
+    @torch.no_grad()
+    def init(self, cfg: ModelConfig, gen: torch.Generator) -> None:
+        self.norm1.fill_(1.0)
+        self.norm2.fill_(1.0)
+        init_attn_params(self.attn, cfg.d_model, cfg.attn, gen)
+        if hasattr(self, "moe"):
+            init_moe_params(self.moe, cfg.d_model, cfg.moe, gen)
+        else:
+            init_mlp_params(self.mlp, cfg.d_model, cfg.d_ff, cfg.act, gen)
+
+
+class MambaBlock(nn.Module):
+    """One Mamba-2 layer: pre-norm SSD block."""
+
+    kind = "M"
+    window = None
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        self.norm = _vector(cfg.d_model, dtype, device)
+        self.mamba = _params(mamba_param_shapes(cfg.d_model, cfg.ssm),
+                             dtype, device, f32=F32_PARAMS)
+
+    @torch.no_grad()
+    def init(self, cfg: ModelConfig, gen: torch.Generator) -> None:
+        self.norm.fill_(1.0)
+        init_mamba_params(self.mamba, cfg.d_model, cfg.ssm, gen)
+
+
+class SharedSlot(nn.Module):
+    """An ``S`` position of the layer list: it holds no weights (the
+    model's ``shared`` block is applied there)."""
+
+    kind = "S"
 
 
 class TransformerLM(nn.Module):
     def __init__(self, cfg: ModelConfig, dtype=torch.float32, device=None):
         super().__init__()
-        why = unported(cfg)
-        if why is not None:
-            raise NotImplementedError(why)
+        unknown = set(cfg.pattern) - set(LAYER_KINDS)
+        if unknown:
+            raise ValueError(f"{cfg.name}: unknown layer kinds "
+                             f"{sorted(unknown)}")
         dev = resolve_device(device)
         self.cfg = cfg
         self.dtype = dtype
@@ -111,17 +158,32 @@ class TransformerLM(nn.Module):
             torch.empty((cfg.vocab, cfg.d_model), dtype=dtype, device=dev),
             requires_grad=False)
         self.layers = nn.ModuleList(
-            Block(cfg, cfg.pattern[i % len(cfg.pattern)], dtype, dev)
+            self._make(cfg, cfg.pattern[i % len(cfg.pattern)], dtype, dev)
             for i in range(cfg.n_groups * len(cfg.pattern)))
+        if "S" in cfg.pattern:
+            self.shared = Block(cfg, "S", dtype, dev)
         self.final_norm = _vector(cfg.d_model, dtype, dev)
         if not cfg.tie_embeddings:
             self.head = nn.Parameter(
                 torch.empty((cfg.d_model, cfg.vocab), dtype=dtype,
                             device=dev), requires_grad=False)
 
+    @staticmethod
+    def _make(cfg: ModelConfig, kind: str, dtype, device) -> nn.Module:
+        if kind == "M":
+            return MambaBlock(cfg, dtype, device)
+        if kind == "S":
+            return SharedSlot()
+        return Block(cfg, kind, dtype, device)
+
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+    def _blocks(self):
+        """The module applied at each layer position, in order."""
+        return [self.shared if blk.kind == "S" else blk
+                for blk in self.layers]
 
     # -------------------- params --------------------
 
@@ -134,10 +196,10 @@ class TransformerLM(nn.Module):
         cfg = self.cfg
         normal_(self.embed, 0.02, gen)
         for blk in self.layers:
-            blk.norm1.fill_(1.0)
-            blk.norm2.fill_(1.0)
-            init_attn_params(blk.attn, cfg.d_model, cfg.attn, gen)
-            init_mlp_params(blk.mlp, cfg.d_model, cfg.d_ff, cfg.act, gen)
+            if blk.kind != "S":
+                blk.init(cfg, gen)
+        if "S" in cfg.pattern:
+            self.shared.init(cfg, gen)
         self.final_norm.fill_(1.0)
         if not cfg.tie_embeddings:
             normal_(self.head, 0.02, gen)
@@ -145,17 +207,30 @@ class TransformerLM(nn.Module):
 
     # -------------------- forward --------------------
 
-    def _embed(self, tokens) -> torch.Tensor:
+    def _embed(self, tokens, image_embeds=None) -> torch.Tensor:
         tokens = as_tensor(tokens, self.device).long()
-        return self.embed[tokens].to(self.dtype)
+        x = self.embed[tokens].to(self.dtype)
+        if self.cfg.vision_tokens and image_embeds is not None:
+            img = as_tensor(image_embeds, self.device).to(self.dtype)
+            x = torch.cat([img, x], dim=1)
+        return x
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         head = self.embed.T if self.cfg.tie_embeddings else self.head
         return torch.einsum("bsd,dv->bsv", x, head).float()
 
+    def _ffn(self, blk: Block, x: torch.Tensor):
+        """Pre-norm FFN residual -> (x, aux)."""
+        cfg = self.cfg
+        h = rms_norm(x, blk.norm2, cfg.norm_eps)
+        if hasattr(blk, "moe"):
+            y, aux = moe_apply(blk.moe, h, cfg.moe)
+            return x + y, aux
+        return x + mlp_block(blk.mlp, h, cfg.act), None
+
     def _layer(self, blk: Block, x: torch.Tensor, causal: bool):
-        """One layer over a whole sequence -> (x, k, v)."""
+        """One attention layer over a whole sequence -> (x, k, v, aux)."""
         cfg = self.cfg
         b, s, _ = x.shape
         h = rms_norm(x, blk.norm1, cfg.norm_eps)
@@ -165,35 +240,61 @@ class TransformerLM(nn.Module):
                            impl=cfg.attn_impl, chunk=cfg.attn_chunk)
         x = x + torch.einsum("bse,ed->bsd", o.reshape(b, s, -1),
                              blk.attn["wo"])
-        h = rms_norm(x, blk.norm2, cfg.norm_eps)
-        return x + mlp_block(blk.mlp, h, cfg.act), k, v
+        x, aux = self._ffn(blk, x)
+        return x, k, v, aux
 
-    def forward(self, tokens) -> tuple[torch.Tensor, torch.Tensor]:
-        """Full forward -> (logits (B, S, V) f32, aux)."""
-        x = self._embed(tokens)
-        for blk in self.layers:
-            x, _, _ = self._layer(blk, x, self.cfg.attn.causal)
+    def forward(self, tokens, image_embeds=None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Full forward -> (logits (B, S_total, V) f32, aux)."""
+        cfg = self.cfg
+        x = self._embed(tokens, image_embeds)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        return self._logits(x), aux / self.cfg.n_layers
+        for blk in self._blocks():
+            if blk.kind == "M":
+                x = x + mamba_block(blk.mamba,
+                                    rms_norm(x, blk.norm, cfg.norm_eps),
+                                    cfg.ssm, eps=cfg.norm_eps)
+                continue
+            x, _, _, a = self._layer(blk, x, cfg.attn.causal)
+            if a is not None:
+                aux = aux + a
+        return self._logits(x), aux / cfg.n_layers
 
     # -------------------- serving --------------------
 
     def init_cache(self, batch: int, max_len: int) -> dict:
-        return {"layers": [init_kv_cache(batch, max_len, self.cfg.attn,
-                                         blk.window, self.dtype, self.device)
-                           for blk in self.layers],
-                "step": 0}
-
-    def prefill(self, tokens, max_len: int) -> tuple[torch.Tensor, dict]:
-        """Process a full prompt, build the decode cache -> (last logits
-        (B, V), cache).  Window layers keep the last W keys in ring
-        order, as the reference lays them out."""
         cfg = self.cfg
-        x = self._embed(tokens)
+        caches = []
+        for blk in self._blocks():
+            if blk.kind == "M":
+                caches.append(init_mamba_cache(batch, cfg.d_model, cfg.ssm,
+                                               self.dtype, self.device))
+            else:
+                caches.append(init_kv_cache(batch, max_len, cfg.attn,
+                                            blk.window, self.dtype,
+                                            self.device))
+        return {"layers": caches, "step": 0}
+
+    def prefill(self, tokens, max_len: int, image_embeds=None
+                ) -> tuple[torch.Tensor, dict]:
+        """Process a full prompt (after the image prefix, when given),
+        build the decode cache -> (last logits (B, V), cache).  Window
+        layers keep the last W keys in ring order, as the reference lays
+        them out; mamba layers keep the last ``d_conv - 1`` conv inputs
+        and the final SSD state."""
+        cfg = self.cfg
+        x = self._embed(tokens, image_embeds)
         b, s, _ = x.shape
         caches = []
-        for blk in self.layers:
-            x, kk, vv = self._layer(blk, x, causal=True)
+        for blk in self._blocks():
+            if blk.kind == "M":
+                y, c = mamba_prefill(blk.mamba,
+                                     rms_norm(x, blk.norm, cfg.norm_eps),
+                                     cfg.ssm, eps=cfg.norm_eps)
+                x = x + y
+                caches.append(c)
+                continue
+            x, kk, vv, _ = self._layer(blk, x, causal=True)
             window = blk.window
             length = min(window, max_len) if window else max_len
             if window and s > length:
@@ -218,12 +319,16 @@ class TransformerLM(nn.Module):
         cfg = self.cfg
         x = self._embed(tokens)
         step = cache["step"]
-        for blk, c in zip(self.layers, cache["layers"]):
+        for blk, c in zip(self._blocks(), cache["layers"]):
+            if blk.kind == "M":
+                y, _ = mamba_decode_step(blk.mamba,
+                                         rms_norm(x, blk.norm, cfg.norm_eps),
+                                         c, cfg.ssm, eps=cfg.norm_eps)
+                x = x + y
+                continue
             h = rms_norm(x, blk.norm1, cfg.norm_eps)
             y, _ = attention_decode(blk.attn, h, c, step, cfg.attn,
                                     eps=cfg.norm_eps, window=blk.window)
-            x = x + y
-            h = rms_norm(x, blk.norm2, cfg.norm_eps)
-            x = x + mlp_block(blk.mlp, h, cfg.act)
+            x, _ = self._ffn(blk, x + y)
         logits = self._logits(x)
         return logits[:, 0], {"layers": cache["layers"], "step": step + 1}

@@ -59,8 +59,9 @@ class ServeEngine:
     def __init__(self, model, params, cfg: ModelConfig, batch_size: int = 8,
                  max_len: int = 512, coded: CodedConfig | None = None,
                  rng_seed: int = 0, faults=None):
-        """``model`` is a ``repro_torch.models.TransformerLM`` and
-        ``params`` the state dict it serves (loaded into the model; pass
+        """``model`` is a ``repro_torch.models`` model (any family whose
+        ``prefill`` takes only tokens: not whisper) and ``params`` the
+        state dict it serves (loaded into the model; pass
         ``model.init(...)``'s result or a converted one).  The engine
         runs on the model's device."""
         self.model = model

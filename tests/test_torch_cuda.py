@@ -696,3 +696,76 @@ def test_grown_reencode_on_the_card(hopper):
         assert h.plan is plan
         assert torch.equal(h.matvec(x, all4), first)
         scaler.close()
+
+
+# ---------------------------------------------------------------------------
+# The coded consumers and the model families on the card
+# ---------------------------------------------------------------------------
+
+
+def test_coded_moe_on_the_card_matches_moe_block(hopper):
+    """``CodedMoE`` at granite's routing (32 experts, top-8, capacity
+    1.25, so slots drop) on the card against ``moe_block`` on the card,
+    under no mask and two masks, at the reference test's 1e-4; each call
+    one ``bcsr_matmul`` and one ``decode_matmul`` per expert matmul, and
+    the compile one ``cyclic_encode`` per expert matrix."""
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models.moe import CodedMoE, moe_block
+
+    moe = MoEConfig(n_experts=32, top_k=8, d_expert=64)
+    gen = torch.Generator(device=hopper).manual_seed(0)
+    d = 128
+    p = {"router": torch.randn((d, 32), generator=gen, device=hopper)
+         * d ** -0.5}
+    for name, shape, scale in (("w_gate", (32, d, 64), d ** -0.5),
+                               ("w_up", (32, d, 64), d ** -0.5),
+                               ("w_down", (32, 64, d), 64 ** -0.5)):
+        p[name] = torch.randn(shape, generator=gen, device=hopper) * scale
+    x = torch.randn((2, 4, d), generator=gen, device=hopper)
+    before = launch_counts()
+    cm = CodedMoE(p, moe, n_workers=6, stragglers=2)
+    after = launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        "bcsr_matmul": 0, "cyclic_encode": 96, "decode_matmul": 0}
+    assert set(cm.backends()) == {"cuda"}
+    ref, aux_ref = moe_block(p, x, moe)
+    for done in (None, np.asarray([True, False, True, True, False, True]),
+                 np.asarray([False, True, True, False, True, True])):
+        before = launch_counts()
+        out, aux = cm(x, done)
+        torch.cuda.synchronize()
+        after = launch_counts()
+        assert {k: after[k] - before[k] for k in after} == {
+            "bcsr_matmul": 96, "cyclic_encode": 0, "decode_matmul": 96}
+        np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-4)
+        assert abs(float(aux) - float(aux_ref)) <= 1e-6
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "kimi-k2-1t-a32b",
+                                  "mamba2-1.3b", "zamba2-2.7b",
+                                  "phi-3-vision-4.2b", "whisper-tiny"])
+def test_family_forward_on_the_card_matches_the_cpu(hopper, arch):
+    """One smoke forward of each family on the card against the same
+    weights on the CPU, f32."""
+    import repro_torch.configs as port_configs
+    from repro_torch.models import build_model
+
+    cfg = port_configs.get_smoke_config(arch)
+    cpu = build_model(cfg, torch.float32, device="cpu")
+    sd = cpu.init(torch.Generator().manual_seed(0))
+    card = build_model(cfg, torch.float32, device=hopper)
+    card.load_state_dict(sd)
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, cfg.vocab, (2, 8))
+    kw = {}
+    if cfg.family == "audio":
+        kw["frames"] = t(rng.standard_normal((2, cfg.encoder.n_frames,
+                                              cfg.d_model)))
+    if cfg.family == "vlm":
+        kw["image_embeds"] = t(rng.standard_normal((2, cfg.vision_tokens,
+                                                    cfg.d_model)))
+    want, _ = cpu(toks, **kw)
+    got, _ = card(toks, **{k: v.to(hopper) for k, v in kw.items()})
+    assert got.device.type == "cuda"
+    close(got.cpu(), want)

@@ -42,6 +42,8 @@ def test_import_leaves_jax_and_repro_unloaded():
         "repro_torch.obs.export, repro_torch.obs.__main__\n"
         "import repro_torch.serve.router, repro_torch.scale, "
         "repro_torch.scale.pool, repro_torch.scale.controller\n"
+        "import repro_torch.models.moe, repro_torch.models.mamba2, "
+        "repro_torch.models.whisper, repro_torch.parallel.coded_grads\n"
         "repro_torch.compile_plan, repro_torch.CodedFleet, "
         "repro_torch.ClusterPlan, repro_torch.Autoscaler\n"
         "repro_torch.configs.get_config('phi3-mini-3.8b')\n"
@@ -58,13 +60,22 @@ def test_import_leaves_jax_and_repro_unloaded():
 
 def test_public_names_match_the_reference():
     """Every top-level name of the JAX package, and every name its
-    ``repro.api`` and ``repro.serve`` export, resolves in the port (the
-    top level lazily); the port adds ``plan_from_reference_arrays``."""
+    ``repro.api``, ``repro.serve`` and ``repro.models`` export, resolves
+    in the port (the top level lazily); the port adds
+    ``plan_from_reference_arrays``.  Of ``repro.parallel`` the port has
+    the coded layers; its mesh and sharding rules wait for the mesh
+    slice."""
     import repro
     import repro.api
+    import repro.models
+    import repro.models.moe
+    import repro.parallel
     import repro.serve
     import repro_torch
     import repro_torch.api
+    import repro_torch.models
+    import repro_torch.models.moe
+    import repro_torch.parallel
     import repro_torch.serve
 
     assert set(repro_torch.__all__) == set(repro.__all__) | {
@@ -72,7 +83,8 @@ def test_public_names_match_the_reference():
     for name in repro_torch.__all__:
         assert getattr(repro_torch, name) is not None, name
     for ref, port in ((repro.api, repro_torch.api),
-                      (repro.serve, repro_torch.serve)):
+                      (repro.serve, repro_torch.serve),
+                      (repro.models, repro_torch.models)):
         names = {n for n in vars(ref) if not n.startswith("_")
                  and not isinstance(getattr(ref, n), type(repro))}
         missing = sorted(n for n in names if not hasattr(port, n))
@@ -82,6 +94,12 @@ def test_public_names_match_the_reference():
 
     assert CodedFleet is Fleet is repro_torch.CodedFleet
     assert PlanHandle is repro_torch.PlanHandle
+    for name in ("CodedAggregator", "CodedLinear"):
+        assert hasattr(repro.parallel, name)
+        assert getattr(repro_torch.parallel, name).__name__ == name
+    assert repro_torch.models.WhisperLM.__name__ == "WhisperLM"
+    assert repro_torch.models.moe.CodedMoE.__name__ == \
+        repro.models.moe.CodedMoE.__name__
 
 
 SCANNED = sorted([p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")]
