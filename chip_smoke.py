@@ -140,10 +140,32 @@ Phases, one JSON line each:
      also with 256 image embeddings through ``prefill``), and
      whisper-tiny with 1500 frames through ``prefill`` and 16 decode
      steps (the launcher refuses audio).  Kernel rows at granite's, the
-     families' and the expert plans' shapes.
+     families' and the expert plans' shapes;
+ 11. train -- training on the card, after what the earlier phases hold
+     is freed (the free memory printed), one line per sub-phase with its
+     wall time: ``train-full``, phi3-mini-3.8b at full depth and width
+     in bf16 through ``repro_torch.launch.train``'s ``build`` and
+     ``train`` steps and defaults (AdamW with f32 moments, batch 8, seq
+     128, lr 3e-4), 12 steps without a checkpoint, with the
+     engine-shaped coded head (n=6, s=2 over the (3072, 32064) head)
+     registered as the trainer's coded plan, served by a ``memory``
+     cluster of card workers and retuned every 4 steps: each retune 1
+     ``cyclic_encode`` of a snapshot of the live head and a re-ship,
+     then 3 engine masks, each 1 ``bcsr_matmul`` + 1 ``decode_matmul``
+     within max(REL, kappa eps) of hidden @ the live head in f64 and the
+     cluster round bitwise; the loss must fall (the mean of the last 4
+     below the first 4); the step p50, tokens/s, peak memory, the bound
+     (``cell_flops`` over 989 TFLOP/s + AdamW's bytes over 3.35 TB/s)
+     and a ``census`` of one step; ``train-f32``, the model cut to 2
+     layers, one bf16 and one f32 step on the same weights (loss within
+     2e-2, grad norm within 2^-9); ``train-resume``, the smoke config in
+     f32: 6 steps against 3 + a checkpoint + a fresh trainer resumed to
+     6 (rtol 1e-5, atol 1e-6), int8 compression, 2 microbatches.  Kernel
+     rows at the retuned plan's shapes.
 
 Launch counters are set to 0 just before each main path (mv, mm,
-serve, cluster, and each edge, front and models sub-phase) and read
+serve, cluster, each edge, front and models sub-phase, and train-full)
+and read
 just after; a child
 process's launches come from its own report: every encode must have gone through
 ``cyclic_encode``, every worker product through ``bcsr_matmul`` (one
@@ -164,6 +186,7 @@ import argparse
 import concurrent.futures
 import contextlib
 import dataclasses
+import gc
 import hashlib
 import io
 import itertools
@@ -172,8 +195,10 @@ import os
 import socket
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -216,6 +241,16 @@ from repro_torch.kernels.decode_matmul import (  # noqa: E402
     prepare_decode,
 )
 from repro_torch.launch import serve as launcher  # noqa: E402
+from repro_torch.launch import train as train_launcher  # noqa: E402
+from repro_torch.analysis.flops import cell_flops  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
+from repro_torch.data import DataConfig, SyntheticTokens, make_pipeline  # noqa: E402,E501
+from repro_torch.optim import (  # noqa: E402
+    AdamWConfig,
+    CompressionConfig,
+    apply_updates,
+)
+from repro_torch.train import TrainConfig, Trainer  # noqa: E402
 import repro_torch.models.moe as moe_module  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
@@ -1219,20 +1254,28 @@ def step_census(model, toks: np.ndarray, max_len: int, reps: int = 5
             # the same slot is written each time: the cache stays valid
             return model.decode_step(cache, nxt)
         p50 = host_p50_ms(step, reps)
-        acts, attempts = trace_whole("decode step", step, traced_ran)
+        return device_census("decode_step", step, p50)
+
+
+def device_census(label: str, fn, p50_ms: float) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: its device kernels,
+    the device's busy share of ``p50_ms`` (the call's wall time, host
+    clock, untraced) and the kernels that take the most device time.
+    The call launches none of the port's kernels."""
+    acts, attempts = trace_whole(label, fn, traced_ran)
     busy = busy_us(acts) / 1e3
     by_name: dict = {}
     for name, start, end in acts:
         key = name.removeprefix("void ").split("<")[0].split("(")[0][:60]
         by_name[key] = by_name.get(key, 0.0) + (end - start) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    row = {"call": "decode_step", "device_kernels": len(acts),
-           "device_busy_ms": busy, "p50_ms": p50, "busy_share": busy / p50,
-           "idle_share": 1.0 - busy / p50,
+    row = {"call": label, "device_kernels": len(acts),
+           "device_busy_ms": busy, "p50_ms": p50_ms,
+           "busy_share": busy / p50_ms, "idle_share": 1.0 - busy / p50_ms,
            "top_kernels_ms": [[k, v] for k, v in top], "traces": attempts}
     emit("census", **row)
     if any(traced_ran(acts).values()):
-        raise AssertionError(f"decode step: port kernels {traced_ran(acts)}")
+        raise AssertionError(f"{label}: port kernels {traced_ran(acts)}")
     return row
 
 
@@ -3298,6 +3341,385 @@ def phase_models(seed: int, dev, gen, smoke: bool = False
     return counts, rows + family_rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: training on the card (repro_torch.launch.train)
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "phi3-mini-3.8b"
+TRAIN_STEPS = 12
+TRAIN_RETUNE_EVERY = 4
+# engine masks held after each retune
+TRAIN_MASKS = 3
+# train-f32: one bf16 step against one f32 step on the same weights; the
+# loss within REL's bf16 bound, and the global grad norm within one bf16
+# ulp (2^-9) relative: the norm sums ~4e8 squared grads whose bf16
+# roundings are independent and average out, so only a systematic fault
+# of the bf16 backward reaches one ulp (measured on an H100 80GB HBM3 at
+# 700 W: 6.7e-6)
+TRAIN_BF16_LOSS_REL = 2e-2
+TRAIN_BF16_GNORM_REL = 2.0 ** -9
+# train-resume: tests/test_substrate.py's mid-run resume tolerance
+RESUME_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def live_cuda_tensors(top: int = 6) -> list:
+    """The largest tensors still alive on the card: [shape, dtype, GB,
+    the types of the objects that hold them]."""
+    with warnings.catch_warnings():    # isinstance on deprecated aliases
+        warnings.simplefilter("ignore")
+        found = [o for o in gc.get_objects()
+                 if isinstance(o, torch.Tensor) and o.device.type == "cuda"]
+    found.sort(key=lambda t: -t.numel() * t.element_size())
+    return [[list(t.shape), str(t.dtype).removeprefix("torch."),
+             t.numel() * t.element_size() / 1e9,
+             sorted({type(r).__name__ for r in gc.get_referrers(t)
+                     if r is not found})[:6]]
+            for t in found[:top]]
+
+
+def free_memory(where: str) -> dict:
+    """Collect what earlier phases left (reference cycles included), give
+    the allocator's cached blocks back and report the card's free memory
+    and what still holds the most of it."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    row = {"free_gb": free / 1e9, "total_gb": total / 1e9,
+           "allocated_gb": torch.cuda.memory_allocated() / 1e9,
+           "largest_live": live_cuda_tensors()}
+    emit("train", sub=where, **row)
+    return row
+
+
+def adamw_bytes(params: dict, opt_state: dict) -> float:
+    """Bytes one AdamW update must move: each parameter, its gradient
+    (the parameter's dtype) and both moments read once, the parameter and
+    both moments written once."""
+    total = 0
+    for name, p in params.items():
+        moments = (opt_state["m"][name].element_size()
+                   + opt_state["v"][name].element_size())
+        total += p.numel() * (3 * p.element_size() + 2 * moments)
+    return float(total)
+
+
+def hold_retunes(trainer, plan, cluster, hidden, faults, checks: list):
+    """Wrap ``trainer._retune``: each retune must launch exactly one
+    ``cyclic_encode`` (of a snapshot of the live head, not the head
+    itself) and re-ship the cluster's shards; then, under
+    ``TRAIN_MASKS`` engine masks, one in-process matvec (1
+    ``bcsr_matmul`` + 1 ``decode_matmul``) within max(REL, kappa eps) of
+    hidden @ the live head in f64, and the cluster's round (k
+    ``bcsr_matmul`` in its card workers + 1 ``decode_matmul``) bitwise
+    the in-process result."""
+    real = trainer._retune
+    dtype = plan.executor.coded.dtype
+
+    def retune(params, step):
+        before = launch_counts()
+        real(params, step)
+        torch.cuda.synchronize()
+        where = f"train retune after step {step}"
+        expect_counts(where, launched_since(before), bcsr_matmul=0,
+                      cyclic_encode=1, decode_matmul=0)
+        entry = trainer.retunes[-1]
+        if not entry.get("reshipped_bytes", 0) > 0:
+            raise AssertionError(f"{where}: no shards re-shipped: {entry}")
+        live = params["head"].detach()
+        if plan._A is params["head"] or not torch.equal(plan._A, live):
+            raise AssertionError(f"{where}: the plan does not hold a "
+                                 f"snapshot of the live head")
+        ref = hidden.double() @ live.double()
+        patterns = []
+        for _ in range(TRAIN_MASKS):
+            done = faults.mask(plan.n, plan.s)
+            before = launch_counts()
+            got = plan.matvec(hidden, done)
+            torch.cuda.synchronize()
+            expect_counts(f"{where}: one matvec", launched_since(before),
+                          bcsr_matmul=1, cyclic_encode=0, decode_matmul=1)
+            row = check_decoded(
+                where, dtype, plan, done, got, ref, live.shape[0],
+                lambda rows: mv_stored_decode(plan, rows, hidden, plan.r))
+            before = launch_counts()
+            over = cluster.matvec(hidden, done)
+            torch.cuda.synchronize()
+            expect_counts(f"{where}: one cluster round",
+                          launched_since(before), bcsr_matmul=plan.k,
+                          cyclic_encode=0, decode_matmul=1)
+            row["cluster_bitwise"] = bool(torch.equal(over, got))
+            if not row["cluster_bitwise"]:
+                raise AssertionError(f"{where}: the cluster round differs "
+                                     f"from the in-process plan: "
+                                     f"{rel_err(over, got.double())}")
+            patterns.append(row)
+        clean(where, cluster.reports)
+        checks.append({"step": step, "backend": entry["backend"],
+                       "reshipped_bytes": entry["reshipped_bytes"],
+                       "patterns": patterns})
+
+    trainer._retune = retune
+
+
+def train_full(seed: int, dev, smoke: bool = False) -> tuple[dict, list]:
+    """phi3-mini-3.8b at full depth and width in bf16 through the
+    launcher's ``build`` and ``train`` steps and defaults (AdamW, f32
+    moments, batch 8, seq 128, lr 3e-4, warmup steps // 10), 12 steps,
+    no checkpoint (params + m + v as f32 would be ~46 GB of archive).
+    The engine-shaped coded head (n=6, s=2 over the (3072, 32064) head)
+    is registered as a coded plan served by a ``memory`` cluster of card
+    workers and retuned every 4 steps (``hold_retunes``).  -> (the
+    path's launches, kernel rows at the retuned plan's shapes)."""
+    t_sub = time.perf_counter()
+    argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS),
+            "--seed", str(seed), "--device", str(dev)] \
+        + (["--smoke"] if smoke else [])
+    args = train_launcher.parse_args(argv)
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path: build, the coded head, train with its retunes
+    reset_launch_counts()
+    (cfg, model, trainer, dcfg), printed = launcher_call(
+        train_launcher.build, args)
+    # the coded head is compiled as the serve engine compiles it, over
+    # the head the fit draws from --seed (drawn here from the same seed)
+    model.init(torch.Generator(dev).manual_seed(args.seed))
+    coded = CodedConfig(enabled=True, n_workers=6, stragglers=2)
+    t0 = time.perf_counter()
+    plan = compile_plan(model.head.detach().clone(), scheme=coded.scheme,
+                        n=coded.n_workers, s=coded.stragglers,
+                        seed=coded.seed, backend="auto", device=dev)
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    expect_counts("train head compile", launch_counts(), bcsr_matmul=0,
+                  cyclic_encode=1, decode_matmul=0)
+    cluster = plan.to_cluster(transport="memory")
+    try:
+        card_workers("train", cluster)
+        trainer.coded_plans = [(plan, lambda p: p["head"], cluster)]
+        trainer.cfg = dataclasses.replace(trainer.cfg,
+                                          retune_every=TRAIN_RETUNE_EVERY)
+        hidden = torch.randn((2, cfg.d_model),
+                             generator=torch.Generator(dev).manual_seed(
+                                 seed + 19), device=dev)
+        checks: list = []
+        hold_retunes(trainer, plan, cluster, hidden,
+                     StragglerFaults(rng=np.random.default_rng(seed)),
+                     checks)
+        t0 = time.perf_counter()
+        (params, opt_state, history), lines = launcher_call(
+            train_launcher.train, args, trainer, dcfg)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        printed += lines
+        counts = launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        retunes = TRAIN_STEPS // TRAIN_RETUNE_EVERY
+        per_mask = {"bcsr_matmul": 1 + plan.k, "decode_matmul": 2}
+        expect_counts("train-full", counts,
+                      bcsr_matmul=retunes * TRAIN_MASKS
+                      * per_mask["bcsr_matmul"],
+                      cyclic_encode=1 + retunes,
+                      decode_matmul=retunes * TRAIN_MASKS
+                      * per_mask["decode_matmul"])
+        if len(checks) != retunes or len(trainer.retunes) != retunes:
+            raise AssertionError(f"train-full: {len(checks)} retunes "
+                                 f"checked, {trainer.retunes}")
+
+        losses = [h["loss"] for h in history]
+        if len(history) != TRAIN_STEPS or not np.all(np.isfinite(losses)):
+            raise AssertionError(f"train-full: losses {losses}")
+        first, last = float(np.mean(losses[:4])), float(np.mean(losses[-4:]))
+        if not last < first:
+            raise AssertionError(f"train-full: the loss did not fall: mean "
+                                 f"of the first 4 {first}, last 4 {last}")
+        step_ms = [h["dt"] * 1e3 for h in history]
+        p50 = float(np.median(step_ms[1:]))         # step 0 warms up
+        shape = ShapeConfig("train", args.seq, args.batch, "train")
+        flops = cell_flops(cfg, shape, microbatches=args.microbatches)
+        nbytes = adamw_bytes(params, opt_state)
+        bound_ms = (flops.total / BF16_FLOPS_PER_S
+                    + nbytes / HBM_BYTES_PER_S) * 1e3
+
+        # one more step under the profiler (the path's counts are read)
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in
+                 SyntheticTokens(dcfg).batch_at(TRAIN_STEPS).items()}
+        box = {"opt": opt_state}
+
+        def step():
+            box["opt"], _, metrics = trainer._step(params, box["opt"], None,
+                                                   batch)
+            return float(metrics["loss"])
+        step_row = device_census("train_step", step, p50)
+        # the step's two halves: the loss and grads (forward, the remat
+        # forward, backward), then AdamW alone on those grads
+        grads_ms = host_p50_ms(lambda: trainer._grads(params, batch), 3)
+        _, grads = trainer._grads(params, batch)
+
+        def adamw():
+            _, box["opt"], _ = apply_updates(trainer.opt_cfg, params, grads,
+                                             box["opt"])
+        adamw_ms = host_p50_ms(adamw, 3)
+        adamw_row = device_census("adamw", adamw, adamw_ms)
+        del grads
+
+        done = checks[-1]["patterns"][0]["stragglers"]
+        mask = np.ones(plan.n, bool)
+        mask[done] = False
+        rows = kernels_product(plan, hidden, mask, "train head", reps=20)
+        rows = rows[:1] + [encode_row(plan, "train head")] + rows[1:]
+        clean("train-full", cluster.reports)
+    finally:
+        cluster.shutdown()
+    emit("train", sub="train-full", arch=cfg.name, reduced=[],
+         dtype=str(model.dtype).removeprefix("torch."),
+         params_b=sum(p.numel() for p in params.values()) / 1e9,
+         layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab,
+         steps=len(history), batch=args.batch, seq=args.seq, lr=args.lr,
+         moment_dtype=trainer.opt_cfg.moment_dtype, remat=cfg.remat,
+         losses=losses, loss_first4_mean=first, loss_last4_mean=last,
+         grad_norms=[h["grad_norm"] for h in history],
+         step_ms=step_ms, step_p50_ms=p50,
+         tokens_per_s=args.batch * args.seq / (p50 / 1e3),
+         peak_memory_gb=peak_gb, fit_s=fit_s, coded_compile_s=compile_s,
+         bound_ms=bound_ms, bound_flops=flops.total,
+         bound_flops_ms=flops.total / BF16_FLOPS_PER_S * 1e3,
+         bound_adamw_bytes=nbytes,
+         bound_adamw_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+         bound_note="cell_flops(train, microbatches=1) over 989 TFLOP/s "
+                    "(bf16 dense) + AdamW's bytes over 3.35 TB/s",
+         model_flops=flops.model_flops, bound_share=bound_ms / p50,
+         step_kernels=step_row["device_kernels"],
+         step_busy_share=step_row["busy_share"],
+         grads_p50_ms=grads_ms, adamw_p50_ms=adamw_ms,
+         adamw_kernels=adamw_row["device_kernels"],
+         adamw_busy_ms=adamw_row["device_busy_ms"],
+         adamw_bound_share=nbytes / HBM_BYTES_PER_S * 1e3 / adamw_ms,
+         n=plan.n, s=plan.s, k=plan.k, backend=plan.backend,
+         retunes=checks, stragglers=trainer.stragglers, launches=counts,
+         printed=printed, wall_s=time.perf_counter() - t_sub)
+    del model, trainer, params, opt_state, box, plan, cluster
+    return counts, rows
+
+
+def one_step(model, steps_cfg: dict, dcfg) -> dict:
+    """One launcher-default AdamW step of ``model`` on its current
+    weights -> the step's history entry."""
+    model.init = lambda gen: None         # keep the weights it holds
+    tr = Trainer(model, AdamWConfig(**steps_cfg), TrainConfig(steps=1))
+    _, _, hist = tr.fit(lambda start: make_pipeline(dcfg, start),
+                        resume=False)
+    return hist[0]
+
+
+def train_f32(seed: int, dev, smoke: bool = False) -> dict:
+    """phi3-mini-3.8b cut to 2 layers at full width: one step in bf16
+    and one in f32 on the same weights (drawn in bf16, widened exactly),
+    batch 8 x 128.  The losses within 2e-2 relative, the two global grad
+    norms within 2^-9 relative (``TRAIN_BF16_GNORM_REL``)."""
+    t_sub = time.perf_counter()
+    base = (get_smoke_config if smoke else get_config)(TRAIN_ARCH)
+    cfg = base.with_(n_layers=2)
+    reset_launch_counts()
+    m16 = build_model(cfg, torch.bfloat16, device=dev)
+    sd = m16.init(torch.Generator(dev).manual_seed(seed))
+    m32 = build_model(cfg, torch.float32, device=dev)
+    m32.load_state_dict(sd)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=128, global_batch=8,
+                      seed=seed)
+    opt = dict(lr=3e-4, warmup_steps=0, total_steps=1)
+    h16, h32 = one_step(m16, opt, dcfg), one_step(m32, opt, dcfg)
+    expect_counts("train-f32", launch_counts(), bcsr_matmul=0,
+                  cyclic_encode=0, decode_matmul=0)
+    loss_rel = abs(h16["loss"] - h32["loss"]) / abs(h32["loss"])
+    gnorm_rel = abs(h16["grad_norm"] - h32["grad_norm"]) / h32["grad_norm"]
+    row = {"arch": cfg.name, "reduced": ["n_layers 32 -> 2"],
+           "loss_bf16": h16["loss"], "loss_f32": h32["loss"],
+           "loss_rel_gap": loss_rel, "loss_limit": TRAIN_BF16_LOSS_REL,
+           "grad_norm_bf16": h16["grad_norm"],
+           "grad_norm_f32": h32["grad_norm"], "grad_norm_rel_gap": gnorm_rel,
+           "grad_norm_limit": TRAIN_BF16_GNORM_REL,
+           "step_ms_bf16": h16["dt"] * 1e3, "step_ms_f32": h32["dt"] * 1e3}
+    emit("train", sub="train-f32", **row,
+         wall_s=time.perf_counter() - t_sub)
+    if not loss_rel <= TRAIN_BF16_LOSS_REL:
+        raise AssertionError(f"train-f32: bf16 loss off f32's: {row}")
+    if not gnorm_rel <= TRAIN_BF16_GNORM_REL:
+        raise AssertionError(f"train-f32: bf16 grad norm off f32's: {row}")
+    del m16, m32, sd
+    return row
+
+
+def train_resume(seed: int, dev) -> dict:
+    """The phi3-mini smoke config on the card, f32, as
+    tests/test_substrate.py runs it: 6 steps uninterrupted; 3 steps, a
+    checkpoint, and a fresh ``Trainer`` resumed to 6; the final params
+    within rtol=1e-5, atol=1e-6 (the embedding's backward sums with
+    atomics, so bitwise is not expected); then 6 steps with int8
+    compression and 6 with 2 microbatches."""
+    t_sub = time.perf_counter()
+    cfg = get_smoke_config(TRAIN_ARCH)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=4)
+
+    def run(steps, ckpt_dir=None, total=None, **tkw):
+        model = build_model(cfg, torch.float32, device=dev)
+        tr = Trainer(model, AdamWConfig(lr=1e-3, warmup_steps=2,
+                                        total_steps=total or steps),
+                     TrainConfig(steps=steps, ckpt_every=3, log_every=100,
+                                 ckpt_dir=ckpt_dir, **tkw))
+        params, _, hist = tr.fit(lambda start: make_pipeline(dcfg, start),
+                                 gen=torch.Generator(dev).manual_seed(seed))
+        return {k: v.detach().clone() for k, v in params.items()}, hist
+
+    reset_launch_counts()
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        pa, hist_a = run(6, f"{tmp}/a")
+        run(3, f"{tmp}/b", total=6)
+        ckpts = sorted(p.name for p in Path(f"{tmp}/b").iterdir())
+        pb, hist_b = run(6, f"{tmp}/b")
+    int8 = run(6, compression=CompressionConfig(mode="int8"))[1]
+    micro = run(6, microbatches=2)[1]
+    expect_counts("train-resume", launch_counts(), bcsr_matmul=0,
+                  cyclic_encode=0, decode_matmul=0)
+    worst = max(float((pa[k] - pb[k]).abs().max()) for k in pa)
+    excess = max(float(((pa[k] - pb[k]).abs() - RESUME_TOL["atol"]
+                        - RESUME_TOL["rtol"] * pb[k].abs()).max())
+                 for k in pa)
+    row = {"arch": cfg.name, "checkpoints": ckpts,
+           "resumed_at": hist_b[0]["step"] if hist_b else None,
+           "losses": [h["loss"] for h in hist_a],
+           "resumed_losses": [h["loss"] for h in hist_b],
+           "max_abs_param_diff": worst, "tol": RESUME_TOL,
+           "int8_losses": [h["loss"] for h in int8],
+           "microbatch2_losses": [h["loss"] for h in micro]}
+    emit("train", sub="train-resume", **row,
+         wall_s=time.perf_counter() - t_sub)
+    if row["resumed_at"] != 3 or excess > 0:
+        raise AssertionError(f"train-resume: {row}")
+    for name in ("losses", "int8_losses", "microbatch2_losses"):
+        if len(row[name]) != 6 or not np.all(np.isfinite(row[name])):
+            raise AssertionError(f"train-resume {name}: {row[name]}")
+    return row
+
+
+def phase_train(seed: int, dev, smoke: bool = False) -> tuple[dict, list]:
+    """Phase 11: training on the card.  ``train-full`` (the main path,
+    with the coded head retuned under it), ``train-f32`` and
+    ``train-resume``.  ``smoke``: the smoke config for ``train-full`` and
+    ``train-f32``, for a rehearsal on the CPU.  -> (the path's launches,
+    kernel rows)."""
+    free_memory("memory")
+    counts, rows = train_full(seed, dev, smoke)
+    free_memory("memory-after-full")
+    train_f32(seed, dev, smoke)
+    train_resume(seed, dev)
+    emit("train", sub="total", launches=counts)
+    return counts, rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3360,6 +3782,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     models_counts, models_rows = phase_models(args.seed, dev, gen)
     rows += models_rows
+    train_counts, train_rows = phase_train(args.seed, dev)
+    rows += train_rows
 
     if args.parent is not None:
         root = Path(__file__).resolve().parent
@@ -3382,7 +3806,7 @@ def main(argv=None) -> int:
             "launches": (mv_counts[name] + mm_counts[name]
                          + serve_counts[name] + cluster_counts[name]
                          + edge_counts[name] + front_counts[name]
-                         + models_counts[name]),
+                         + models_counts[name] + train_counts[name]),
             "max_abs_err": main_row["max_abs_err"], "ms": main_row["ms"],
             "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],

@@ -141,7 +141,13 @@ def _shm_worker_main(conn, worker_id: int, fault_spec, heartbeat_s: float,
                 elif kind == "shard" and isinstance(data, tuple) \
                         and data and data[0] == _REF_META:
                     # shard frame lives in a segment: decode in place
-                    shm = _attach(segs, data[1])
+                    try:
+                        shm = _attach(segs, data[1])
+                    except FileNotFoundError:
+                        # released before this child mapped it: a newer
+                        # ship of the same shard is behind it on the
+                        # pipe, or the plan or this worker left
+                        continue
                     inbox.put(("shard",
                                PlanShard.decode(shm.buf[:int(data[2])])))
                     continue
@@ -227,7 +233,8 @@ class ShmTransport(PipeTransport):
         # round -> (shm, {row: offset}, shape, dtype): result slabs
         self._results: dict[int, tuple] = {}
         # (worker, plan) -> shm: shipped shard frames
-        self._shard_segs: dict[tuple[int, int], object] = {}
+        # (worker, plan, task rows) -> the shard's segment
+        self._shard_segs: dict[tuple[int, int, tuple], object] = {}
         self._deferred: list = []       # close() raced a live view
 
     # -- segment plumbing ---------------------------------------------------
@@ -337,14 +344,21 @@ class ShmTransport(PipeTransport):
         try:
             meta, _ = decode_record(blob)
             plan_id = int(meta.get("plan", 0))
+            rows = tuple(int(r) for r in meta.get("task_rows", ()))
         except (ValueError, KeyError, TypeError):
-            plan_id = -1
+            plan_id, rows = -1, ()
         shm = self._new_seg(len(blob))
         shm.buf[: len(blob)] = blob
         self.bytes_copied += len(blob)
+        # keyed by the shard itself: an heir that inherits a dead
+        # worker's rows of a plan keeps the segment of its own rows
+        # (keyed by worker and plan alone, the inherited shard released
+        # the heir's segment, and a child that had not mapped it yet
+        # died on the missing name)
+        key = (worker, plan_id, rows)
         with self._lock:
-            old = self._shard_segs.pop((worker, plan_id), None)
-            self._shard_segs[(worker, plan_id)] = shm
+            old = self._shard_segs.pop(key, None)
+            self._shard_segs[key] = shm
         if old is not None:             # re-ship replaces (retune/requeue)
             self._release(old)
         self._send(worker, ("shard", (_REF_META, shm.name, len(blob))))
@@ -399,8 +413,10 @@ class ShmTransport(PipeTransport):
     def drop_plan(self, worker: int, plan_id: int) -> None:
         super().drop_plan(worker, plan_id)
         with self._lock:
-            shm = self._shard_segs.pop((worker, plan_id), None)
-        if shm is not None:
+            mine = [key for key in self._shard_segs
+                    if key[:2] == (worker, plan_id)]
+            segs = [self._shard_segs.pop(key) for key in mine]
+        for shm in segs:
             self._release(shm)
 
     def remove_worker(self, worker: int) -> None:

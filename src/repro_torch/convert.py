@@ -51,7 +51,11 @@ the encoder's layers (``norm1``, ``norm2``, ``attn``, ``mlp``) and whose
 the port's keys are ``enc.{j}.*`` and ``layers.{L}.*``.
 
 ``model_params_from_reference`` and ``model_params_to_reference`` map
-one onto the other; bf16 keeps its bits both ways.
+one onto the other; bf16 keeps its bits both ways.  The AdamW state
+``{"step", "m", "v"}`` (``repro.optim.adamw``) mirrors the params, so
+``opt_state_to_reference`` and ``opt_state_from_reference`` carry ``m``
+and ``v`` through the same mapping and ``step`` as an int32 scalar; the
+port's checkpoints are written in the reference's layout through them.
 
 This module imports nothing of the JAX package: only numpy arrays
 cross.
@@ -219,3 +223,22 @@ def model_params_to_reference(state_dict: dict, cfg) -> dict:
                                for key, val in state_dict.items()
                                if key.startswith("shared.")})
     return out
+
+
+def opt_state_to_reference(state: dict, cfg) -> dict:
+    """The JAX AdamW state (numpy arrays) for the port's ``{"step", "m",
+    "v"}``: ``m`` and ``v`` take the params' mapping, ``step`` is a 0-d
+    int32 array."""
+    return {"step": np.asarray(int(state["step"]), np.int32),
+            "m": model_params_to_reference(state["m"], cfg),
+            "v": model_params_to_reference(state["v"], cfg)}
+
+
+def opt_state_from_reference(state: dict, cfg, *, device=None) -> dict:
+    """The port's AdamW state for the JAX one (numpy arrays): the inverse
+    of ``opt_state_to_reference``."""
+    dev = resolve_device(device)
+    return {"step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=dev),
+            "m": model_params_from_reference(state["m"], cfg, device=dev),
+            "v": model_params_from_reference(state["v"], cfg, device=dev)}

@@ -24,8 +24,13 @@ and scans; the port keeps one module per layer in an ``nn.ModuleList``
 (layer ``g * len(pattern) + i`` is the reference's ``groups/l{i}`` at
 group ``g``; an ``S`` position holds an empty ``SharedSlot``).  Weights
 keep the reference's ``(d_in, d_out)`` orientation, so
-``repro_torch.convert`` carries them across as plain copies.  The
-training loss waits for the training slice (ROADMAP.md §1 item 13).
+``repro_torch.convert`` carries them across as plain copies.
+
+Every parameter is built frozen (``requires_grad=False``): serving runs
+under ``torch.inference_mode``.  The trainer turns grad on
+(``model.requires_grad_(True)``) and calls ``train_loss``; while grad
+is enabled, ``forward`` checkpoints each layer as ``cfg.remat`` says
+(the reference's ``_maybe_remat``).
 
 Serving state is a dict ``{"layers": [per-layer cache], "step": int}``:
 ``{"k", "v"}`` for an attention layer, ``{"conv", "state"}`` for a
@@ -36,8 +41,11 @@ place.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .._device import as_tensor, resolve_device
 from ..configs.base import ModelConfig
@@ -66,6 +74,45 @@ from .mamba2 import (
 from .moe import init_moe_params, moe_apply, moe_param_shapes
 
 LAYER_KINDS = ("A", "L", "G", "S", "M")
+
+
+# ---------------------------------------------------------------------------
+# Sharded cross-entropy
+# ---------------------------------------------------------------------------
+
+
+def sharded_cross_entropy(logits: torch.Tensor, labels: torch.Tensor
+                          ) -> torch.Tensor:
+    """The reference's CE, reduction for reduction: a max taken without
+    gradient, log-sum-exp of the shifted logits, the label's logit
+    picked by a one-hot multiply-reduce, and labels < 0 masked out.  The
+    port runs on one device, so nothing is sharded; the name is the
+    reference's."""
+    logits = logits.float()
+    labels = labels.long()
+    zmax = logits.max(dim=-1, keepdim=True).values.detach()
+    shifted = logits - zmax
+    lse = torch.log(torch.sum(torch.exp(shifted), dim=-1)) + zmax[..., 0]
+    # jax.nn.one_hot: all zeros for a label outside [0, V)
+    onehot = (labels[..., None] == torch.arange(
+        logits.shape[-1], device=logits.device)).to(logits.dtype)
+    label_logit = torch.sum(logits * onehot, dim=-1)
+    ce = lse - label_logit
+    mask = (labels >= 0).to(torch.float32)
+    return (ce * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def remat_layer(fn, mode: str, x: torch.Tensor):
+    """``fn(x)`` with activation checkpointing per ``mode`` while grad is
+    enabled (the reference's ``_maybe_remat``): "full" recomputes the
+    layer in the backward pass, so only the residual stream crosses
+    layer boundaries.  "dots" (the reference keeps matmul outputs and
+    recomputes the rest) is taken as "full": the values are the same
+    either way, and the stable checkpoint API has no save policy by op
+    kind.  "none", and any call with grad off, runs ``fn`` as is."""
+    if mode == "none" or not torch.is_grad_enabled():
+        return fn(x)
+    return checkpoint(fn, x, use_reentrant=False)
 
 
 def _params(shapes: dict, dtype, device, f32: tuple = ()
@@ -243,22 +290,39 @@ class TransformerLM(nn.Module):
         x, aux = self._ffn(blk, x)
         return x, k, v, aux
 
+    def _train_layer(self, blk, x: torch.Tensor):
+        """One layer of the forward -> (x, aux or None)."""
+        cfg = self.cfg
+        if blk.kind == "M":
+            return x + mamba_block(blk.mamba,
+                                   rms_norm(x, blk.norm, cfg.norm_eps),
+                                   cfg.ssm, eps=cfg.norm_eps), None
+        x, _, _, a = self._layer(blk, x, cfg.attn.causal)
+        return x, a
+
     def forward(self, tokens, image_embeds=None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-        """Full forward -> (logits (B, S_total, V) f32, aux)."""
+        """Full forward -> (logits (B, S_total, V) f32, aux).  With grad
+        enabled each layer is checkpointed as ``cfg.remat`` says."""
         cfg = self.cfg
         x = self._embed(tokens, image_embeds)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for blk in self._blocks():
-            if blk.kind == "M":
-                x = x + mamba_block(blk.mamba,
-                                    rms_norm(x, blk.norm, cfg.norm_eps),
-                                    cfg.ssm, eps=cfg.norm_eps)
-                continue
-            x, _, _, a = self._layer(blk, x, cfg.attn.causal)
+            x, a = remat_layer(functools.partial(self._train_layer, blk),
+                               cfg.remat, x)
             if a is not None:
                 aux = aux + a
         return self._logits(x), aux / cfg.n_layers
+
+    def train_loss(self, batch: dict) -> torch.Tensor:
+        """CE over the text positions (the vision prefix's logits cut
+        off) + 0.01 x the MoE load-balancing aux loss."""
+        image = batch.get("image_embeds")
+        logits, aux = self(batch["tokens"], image)
+        v = self.cfg.vision_tokens if image is not None else 0
+        labels = as_tensor(batch["labels"], self.device)
+        ce = sharded_cross_entropy(logits[:, v:], labels)
+        return ce + 0.01 * aux
 
     # -------------------- serving --------------------
 

@@ -38,7 +38,7 @@ from .layers import (
     normal_,
     rms_norm,
 )
-from .transformer import _params, _vector
+from .transformer import _params, _vector, sharded_cross_entropy
 
 
 def _cross_attention(p, x, enc_kv, a):
@@ -164,6 +164,13 @@ class WhisperLM(nn.Module):
                                     _encode_kv(lyr.xattn, enc_out, cfg.attn))
         return (self._logits(x),
                 torch.zeros((), dtype=torch.float32, device=x.device))
+
+    def train_loss(self, batch: dict) -> torch.Tensor:
+        """CE of the decoder's logits (the reference checkpoints no
+        layer of this model)."""
+        logits, _ = self(batch["tokens"], batch["frames"])
+        return sharded_cross_entropy(
+            logits, as_tensor(batch["labels"], self.device))
 
     # -------------------- serving --------------------
 

@@ -769,3 +769,100 @@ def test_family_forward_on_the_card_matches_the_cpu(hopper, arch):
     got, _ = card(toks, **{k: v.to(hopper) for k, v in kw.items()})
     assert got.device.type == "cuda"
     close(got.cpu(), want)
+
+
+# ---------------------------------------------------------------------------
+# Training on the card
+# ---------------------------------------------------------------------------
+
+
+def smoke_trainer(device, steps=1, **tkw):
+    """A phi3-mini smoke trainer on ``device`` whose model holds the
+    weights of a CPU draw from seed 0 (its ``init`` keeps them)."""
+    import repro_torch.configs as port_configs
+    from repro_torch.data import DataConfig, make_pipeline
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, Trainer
+
+    cfg = port_configs.get_smoke_config("phi3-mini-3.8b")
+    sd = build_model(cfg, torch.float32, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    model = build_model(cfg, torch.float32, device=device)
+    model.load_state_dict(sd)
+    model.init = lambda gen: None
+    tr = Trainer(model, AdamWConfig(lr=1e-3, warmup_steps=0,
+                                    total_steps=steps),
+                 TrainConfig(steps=steps, log_every=100, **tkw))
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=4)
+    return tr, (lambda start: make_pipeline(dcfg, start))
+
+
+def test_train_step_on_the_card_matches_the_cpu(hopper):
+    """One smoke-config step on the card against the same step on the
+    CPU: the loss and the pre-clip grad norm within 1e-5, every weight's
+    gradient within 1e-4 of its max |g|, and no weight moved further
+    from the CPU's than two steps of lr (AdamW's first update is
+    ~lr * g/(|g|+eps), whose sign can flip where |g| is near eps).  No
+    port kernel runs: training is plain PyTorch."""
+    from repro_torch.data import DataConfig, SyntheticTokens
+
+    runs = {}
+    for dev in ("cpu", hopper):
+        tr, data = smoke_trainer(dev)
+        batch = SyntheticTokens(DataConfig(
+            vocab=tr.model.cfg.vocab, seq_len=16, global_batch=4)).batch_at(0)
+        tr.model.requires_grad_(True)
+        loss = tr.model.train_loss(batch)
+        loss.backward()
+        grads = {n: p.grad.detach().cpu().clone()
+                 for n, p in tr.model.named_parameters()}
+        before = launch_counts()
+        params, _, hist = tr.fit(data, resume=False)
+        assert launch_counts() == before
+        runs[dev] = (float(loss.detach()), grads, hist[0],
+                     {n: p.detach().cpu() for n, p in params.items()})
+    (l_cpu, g_cpu, h_cpu, p_cpu), (l_gpu, g_gpu, h_gpu, p_gpu) = \
+        runs["cpu"], runs[hopper]
+    np.testing.assert_allclose(l_gpu, l_cpu, rtol=1e-5)
+    np.testing.assert_allclose(h_gpu["loss"], h_cpu["loss"], rtol=1e-5)
+    np.testing.assert_allclose(h_gpu["grad_norm"], h_cpu["grad_norm"],
+                               rtol=1e-5)
+    for name, g in g_cpu.items():
+        scale = float(g.abs().max())
+        assert float((g_gpu[name] - g).abs().max()) <= 1e-4 * scale + 1e-12
+    lr = h_cpu["lr"]
+    for name, p in p_cpu.items():
+        assert float((p_gpu[name] - p).abs().max()) <= 2 * lr + 1e-6, name
+
+
+def test_retune_on_the_card_launches_one_encode(hopper):
+    """A coded plan over the card model's head, retuned by the trainer
+    after its step: exactly one cyclic_encode, of a snapshot of the live
+    head; then one matvec is one bcsr_matmul + one decode_matmul, within
+    f32 tolerance of hidden @ head."""
+    tr, data = smoke_trainer(hopper, retune_every=1)
+    plan = compile_plan(tr.model.head.detach().clone(), n=6, s=2)
+    assert plan.backend == "cuda"
+    tr.coded_plans = [(plan, lambda p: p["head"], None)]
+    before = launch_counts()
+    params, _, _ = tr.fit(data, resume=False)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        "bcsr_matmul": 0, "cyclic_encode": 1, "decode_matmul": 0}
+    assert tr.retunes == [{"step": 0, "backend": "cuda", "changed": False}]
+    head = params["head"].detach()
+    assert plan._A is not head and torch.equal(plan._A, head)
+    x = torch.randn((2, head.shape[0]), device=hopper,
+                    generator=torch.Generator(hopper).manual_seed(1))
+    done = np.ones(6, bool)
+    done[[0, 3]] = False
+    before = launch_counts()
+    got = plan.matvec(x, done)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        "bcsr_matmul": 1, "cyclic_encode": 0, "decode_matmul": 1}
+    np.testing.assert_allclose(got.cpu().numpy(), (x @ head).cpu().numpy(),
+                               rtol=2e-4, atol=2e-4)

@@ -44,6 +44,9 @@ def test_import_leaves_jax_and_repro_unloaded():
         "repro_torch.scale.pool, repro_torch.scale.controller\n"
         "import repro_torch.models.moe, repro_torch.models.mamba2, "
         "repro_torch.models.whisper, repro_torch.parallel.coded_grads\n"
+        "import repro_torch.data, repro_torch.optim, repro_torch.train, "
+        "repro_torch.train.checkpoint, repro_torch.analysis.flops, "
+        "repro_torch.launch.train\n"
         "repro_torch.compile_plan, repro_torch.CodedFleet, "
         "repro_torch.ClusterPlan, repro_torch.Autoscaler\n"
         "repro_torch.configs.get_config('phi3-mini-3.8b')\n"
@@ -60,7 +63,8 @@ def test_import_leaves_jax_and_repro_unloaded():
 
 def test_public_names_match_the_reference():
     """Every top-level name of the JAX package, and every name its
-    ``repro.api``, ``repro.serve`` and ``repro.models`` export, resolves
+    ``repro.api``, ``repro.serve``, ``repro.models``, ``repro.data``,
+    ``repro.optim`` and ``repro.train`` export, resolves
     in the port (the top level lazily); the port adds
     ``plan_from_reference_arrays``.  Of ``repro.parallel`` the port has
     the coded layers; its mesh and sharding rules wait for the mesh
@@ -82,9 +86,19 @@ def test_public_names_match_the_reference():
         "plan_from_reference_arrays"}
     for name in repro_torch.__all__:
         assert getattr(repro_torch, name) is not None, name
+    import repro.data
+    import repro.optim
+    import repro.train
+    import repro_torch.data
+    import repro_torch.optim
+    import repro_torch.train
+
     for ref, port in ((repro.api, repro_torch.api),
                       (repro.serve, repro_torch.serve),
-                      (repro.models, repro_torch.models)):
+                      (repro.models, repro_torch.models),
+                      (repro.data, repro_torch.data),
+                      (repro.optim, repro_torch.optim),
+                      (repro.train, repro_torch.train)):
         names = {n for n in vars(ref) if not n.startswith("_")
                  and not isinstance(getattr(ref, n), type(repro))}
         missing = sorted(n for n in names if not hasattr(port, n))
@@ -109,9 +123,9 @@ SCANNED = sorted([p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")]
 def test_scan_covers_every_subpackage():
     packages = {p.parent.relative_to(PORT).as_posix()
                 for p in PORT.rglob("__init__.py")}
-    assert {"api", "cluster", "cluster/transport", "configs", "core",
-            "kernels", "launch", "models", "obs", "parallel", "runtime",
-            "scale", "serve"} <= packages
+    assert {"analysis", "api", "cluster", "cluster/transport", "configs",
+            "core", "data", "kernels", "launch", "models", "obs", "optim",
+            "parallel", "runtime", "scale", "serve", "train"} <= packages
     for pkg in packages:
         assert any(path.startswith(f"src/repro_torch/{pkg}/".replace("/./", "/"))
                    for path in SCANNED), pkg

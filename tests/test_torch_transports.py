@@ -42,6 +42,10 @@ TOL = dict(rtol=2e-5, atol=2e-5)
 LOOSE = dict(rtol=5e-3, atol=5e-3)
 CPU = torch.device("cpu")
 NO_LAUNCHES = {"bcsr_matmul": 0, "cyclic_encode": 0, "decode_matmul": 0}
+# a suspicion timeout no load reaches: tests of death notices must see
+# only the deaths they cause, not a loaded child's late heartbeats
+# failed on suspicion (the default is 2 s)
+NO_SUSPICION = dict(suspect_after=3600.0)
 
 
 def block_sparse(rng, t, r, zeros, bs=8):
@@ -236,7 +240,7 @@ def test_shm_worker_crash_leaves_no_segments(operand):
     fail-stop child leaks nothing."""
     A, x = operand
     plan = port_plan(A, n=6, s=1)
-    with plan.to_cluster(3, transport="shm") as cl:
+    with plan.to_cluster(3, transport="shm", **NO_SUSPICION) as cl:
         tr = cl.transport
         np.testing.assert_allclose(cl.matvec(x).numpy(), x @ A, **LOOSE)
         os.kill(tr._procs[2].pid, signal.SIGKILL)
@@ -251,7 +255,7 @@ def test_shm_garbled_and_wrong_version_frames_kill_worker(operand):
     with a death notice, and the fleet re-homes the rows."""
     A, x = operand
     plan = port_plan(A)
-    with plan.to_cluster(4, transport="shm") as cl:
+    with plan.to_cluster(4, transport="shm", **NO_SUSPICION) as cl:
         tr = cl.transport
         tr.garble(1)
         bad = bytearray(Task(round=999, op="matvec", task_row=0,
@@ -261,6 +265,61 @@ def test_shm_garbled_and_wrong_version_frames_kill_worker(operand):
         assert wait_until(lambda: not tr.alive(1) and not tr.alive(2))
         np.testing.assert_allclose(cl.matvec(x).numpy(), x @ A, **LOOSE)
     assert own_shm_segments(tr) == set()
+
+
+def test_shm_heir_keeps_its_own_shard_segment(operand):
+    """An heir that inherits a dead worker's shard of a plan it already
+    serves keeps its own shard's segment; only a re-ship of the same
+    shard replaces one.  (Keyed by worker and plan alone, the inherited
+    shard released the heir's segment at once, and a child that had not
+    mapped it yet died on the missing name: the cause of this file's shm
+    tests failing under a loaded run.)"""
+    from repro_torch.cluster.wire import shard_plan
+
+    A, _ = operand
+    plan = port_plan(A, n=6, s=1)
+    own_shard, inherited = (s.encode() for s in shard_plan(plan, 3)[::2])
+    tr = make_transport("shm", 2)
+    try:
+        tr.start()
+
+        def worker0():
+            return {key[2]: seg.name for key, seg in tr._shard_segs.items()
+                    if key[0] == 0}
+
+        tr.ship_shard(0, own_shard)
+        first = worker0()
+        tr.ship_shard(0, inherited)
+        both = worker0()
+        assert len(first) == 1 and len(both) == 2
+        assert set(first.values()) < set(both.values()) \
+            <= own_shm_segments(tr)
+        tr.ship_shard(0, inherited)             # a re-ship replaces
+        again = worker0()
+        assert len(again) == 2 and again != both
+        assert set(first.values()) <= set(again.values())
+        assert set(both.values()) - set(first.values()) \
+            & own_shm_segments(tr) == set()
+        assert 0 in tr.reports(timeout=60) and tr.alive(0)
+    finally:
+        tr.close()
+    assert own_shm_segments(tr) == set()
+
+
+def test_shm_child_skips_a_released_shard_segment(operand):
+    """A shard frame whose segment is already gone (a newer ship of the
+    same shard follows it) is skipped: the child keeps serving."""
+    from repro_torch.cluster.transport.shm import _REF_META
+
+    A, x = operand
+    plan = port_plan(A)
+    with plan.to_cluster(3, transport="shm", **NO_SUSPICION) as cl:
+        tr = cl.transport
+        tr._send(0, ("shard", (_REF_META, tr.prefix + "released", 64)))
+        np.testing.assert_allclose(cl.matvec(x).numpy(), x @ A, **LOOSE)
+        assert 0 in tr.reports(timeout=60)
+        assert tr.alive(0)
+        assert sum(r.deaths for r in cl.reports) == 0
 
 
 # ---------------------------------------------------------------------------
