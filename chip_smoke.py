@@ -161,10 +161,35 @@ Phases, one JSON line each:
      2e-2, grad norm within 2^-9); ``train-resume``, the smoke config in
      f32: 6 steps against 3 + a checkpoint + a fresh trainer resumed to
      6 (rtol 1e-5, atol 1e-6), int8 compression, 2 microbatches.  Kernel
-     rows at the retuned plan's shapes.
+     rows at the retuned plan's shapes;
+ 12. mesh -- the mesh (``repro_torch.parallel``), after what phase 11
+     holds is freed (the free memory printed), one line per sub-phase:
+     ``mesh-kimi``, kimi-k2-1t-a32b at full width (d_model 7168, 64
+     heads with 8 KV heads, 384 experts top-8 with d_expert 2048, vocab
+     163840) cut to 1 layer, bf16, drawn from ``--seed`` on the card
+     through the launcher's ``build`` (the launcher reads the cut
+     config), its parameters placed by ``param_shardings`` on a one-rank
+     NCCL (1, 1) ('data', 'model') mesh (zero-copy), served through the
+     launcher's ``serve`` and ``check_coded_head`` with its defaults (8
+     requests, batch 4, 16 new tokens, coded head n=6, s=2 over the
+     (7168, 163840) head) inside ``expert_parallel``, every MoE call
+     through ``moe_block_ep`` (none around it); then ``moe_block_ep``
+     against ``moe_block`` on the served layer's input at a capacity
+     where no slot drops (bf16 on the whole layer within the bf16 limit,
+     f32 on its first 48 experts within 1e-4), the prefill and 16 decode
+     steps under EP against a fresh forward without it, a traced decode
+     step, the coded head under 5 engine masks within max(REL, kappa
+     eps), and the three kernels at kimi's head; ``mesh-restore``, a
+     smoke checkpoint written by the port's trainer on the card restored
+     by ``restore_resharded`` onto the card mesh, bitwise;
+     ``mesh-dryrun``, ``python -m repro_torch.launch.dryrun`` on kimi's
+     ``train_4k`` through ``moe_ep`` (one microbatch) and whisper-tiny's
+     ``decode_32k`` on 256-rank fake process groups, and the roofline
+     over both (host only, started with phase 11).
 
 Launch counters are set to 0 just before each main path (mv, mm,
-serve, cluster, each edge, front and models sub-phase, and train-full)
+serve, cluster, each edge, front and models sub-phase, train-full and
+mesh-kimi)
 and read
 just after; a child
 process's launches come from its own report: every encode must have gone through
@@ -256,7 +281,8 @@ from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.moe import CodedMoE, moe_block  # noqa: E402
 from repro_torch.obs import attribute  # noqa: E402
-from repro_torch.parallel import CodedAggregator  # noqa: E402
+from repro_torch.parallel import CodedAggregator, expert_parallel  # noqa: E402
+from repro_torch.parallel.sharding import reference_key  # noqa: E402
 from repro_torch.runtime import encode_blocks, support_tables  # noqa: E402
 from repro_torch.runtime.pack import unpack_coded_blocks  # noqa: E402
 from repro_torch.scale import (  # noqa: E402
@@ -1201,22 +1227,24 @@ def route_agreement(calls: list, n_layers: int, b: int, p: int,
 
 
 def check_cache(model, toks: np.ndarray, max_len: int, limit: float,
-                steps: int = 1, **kw) -> dict:
+                steps: int = 1, cached=contextlib.nullcontext, **kw) -> dict:
     """Prefill, then ``steps`` greedy decode steps, against one fresh
     forward over the prompt and those tokens: each set of logits within
     ``limit`` x max|logit| of the forward's at the same position.  An MoE
     model runs at a capacity where nothing drops (a fresh forward over
     more tokens drops other slots), and the line reports the share of
     routing choices equal to the forward's.  ``kw``: the family's prefix
-    (``image_embeds``, ``frames``)."""
+    (``image_embeds``, ``frames``); ``cached()``: the context the prefill
+    and the decode steps run in (the forward runs outside it)."""
     with torch.inference_mode(), no_drop(model), RouteLog() as log:
-        last, cache = model.prefill(toks, max_len=max_len, **kw)
-        got, fed = [last], []
-        for _ in range(steps):
-            nxt = got[-1].argmax(dim=-1)[:, None]
-            fed.append(nxt)
-            out, cache = model.decode_step(cache, nxt)
-            got.append(out)
+        with cached():
+            last, cache = model.prefill(toks, max_len=max_len, **kw)
+            got, fed = [last], []
+            for _ in range(steps):
+                nxt = got[-1].argmax(dim=-1)[:, None]
+                fed.append(nxt)
+                out, cache = model.decode_step(cache, nxt)
+                got.append(out)
         full, _ = model(torch.cat([torch.as_tensor(toks, device=last.device)]
                                   + [f.int() for f in fed], dim=1), **kw)
     row = {"dtype": str(model.dtype).removeprefix("torch."),
@@ -3377,7 +3405,7 @@ def live_cuda_tensors(top: int = 6) -> list:
             for t in found[:top]]
 
 
-def free_memory(where: str) -> dict:
+def free_memory(where: str, phase: str = "train") -> dict:
     """Collect what earlier phases left (reference cycles included), give
     the allocator's cached blocks back and report the card's free memory
     and what still holds the most of it."""
@@ -3388,7 +3416,7 @@ def free_memory(where: str) -> dict:
     row = {"free_gb": free / 1e9, "total_gb": total / 1e9,
            "allocated_gb": torch.cuda.memory_allocated() / 1e9,
            "largest_live": live_cuda_tensors()}
-    emit("train", sub=where, **row)
+    emit(phase, sub=where, **row)
     return row
 
 
@@ -3720,6 +3748,409 @@ def phase_train(seed: int, dev, smoke: bool = False) -> tuple[dict, list]:
     return counts, rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the mesh on the card (repro_torch.parallel, launch.dryrun)
+# ---------------------------------------------------------------------------
+
+MESH_ARCH = "kimi-k2-1t-a32b"
+# one MoE layer's experts are 33.8 GB in bf16: two layers leave no room
+# on 80 GB for the coded head and its checks
+MESH_LAYERS = 1
+# the f32 EP check casts up the layer's first experts (and the router's
+# columns for them): all 384 in f32 would be 67.6 GB beside the model
+MESH_F32_EXPERTS = 48
+MESH_RESTORE_ARCH = "kimi-k2-1t-a32b"
+# the dry-run cells (host only): kimi's train cell through the EP path,
+# cut to one microbatch (the reference's 4 would take four times its
+# trace time), and whisper-tiny's decode cell
+DRYRUN_CELLS = (
+    ("kimi-k2-1t-a32b", "train_4k", "moe_ep", 1),
+    ("whisper-tiny", "decode_32k", "", 4),
+)
+DRYRUN_TIMEOUT_S = 900
+
+
+@contextlib.contextmanager
+def card_mesh(dev):
+    """A one-rank NCCL process group on ``dev`` (an in-memory store, no
+    port) and its (1, 1) ('data', 'model') mesh; torn down on exit.  A
+    group that fails to start raises."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if dev.index is None:
+        dev = torch.device(dev.type, torch.cuda.current_device())
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=dev)
+    try:
+        yield init_device_mesh("cuda", (1, 1),
+                               mesh_dim_names=("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+def start_dryrun(root: Path) -> subprocess.Popen:
+    """The dry-run cells and the roofline over them, in one host-only
+    subprocess (its stdout: the dry run's and the roofline's lines)."""
+    out = root / "build" / "dryrun"
+    steps = []
+    for arch, shape, opts, micro in DRYRUN_CELLS:
+        steps.append(
+            f"{sys.executable} -m repro_torch.launch.dryrun --arch {arch} "
+            f"--shape {shape} --microbatches {micro} --out {out}"
+            + (f" --opts {opts}" if opts else ""))
+    steps.append(f"{sys.executable} -m repro_torch.analysis.roofline "
+                 f"--artifacts {out} --out {root / 'build' / 'roofline.json'}")
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    (root / "build").mkdir(exist_ok=True)
+    # files, not pipes: nothing reads the output until phase 12
+    with open(root / "build" / "dryrun.out", "w") as so, \
+            open(root / "build" / "dryrun.err", "w") as se:
+        return subprocess.Popen(
+            ["bash", "-c", f"rm -rf {out} && " + " && ".join(
+                f"(time {step})" for step in steps)],
+            cwd=root, env=env, stdout=so, stderr=se,
+            start_new_session=True)
+
+
+def stop_dryrun(proc: subprocess.Popen) -> None:
+    """Kill the dry run's process group (the shell and its python) if it
+    still runs, and reap it."""
+    if proc.poll() is None:
+        os.killpg(proc.pid, 9)
+        proc.wait()
+
+
+def place_params(mesh, model, cfg) -> dict:
+    """The model's parameters placed on ``mesh`` by ``param_shardings``:
+    each a DTensor over the parameter itself (on a one-rank mesh a shard
+    is the whole tensor: no copy) -> counts per placement."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.parallel import param_shardings
+    from repro_torch.parallel.sharding import spec_of
+
+    params = dict(model.named_parameters())
+    pls = param_shardings(mesh, params, cfg)
+    specs: dict = {}
+    for name, p in params.items():
+        d = DTensor.from_local(p.detach(), mesh, pls[name], run_check=False)
+        if d.to_local().data_ptr() != p.data_ptr() or d.shape != p.shape:
+            raise AssertionError(f"placing {name} copied or reshaped it")
+        key = str(spec_of(mesh, d.placements, d.ndim))
+        specs[key] = specs.get(key, 0) + 1
+    return specs
+
+
+@contextlib.contextmanager
+def ep_calls():
+    """Count ``moe_block_ep`` and ``moe_block`` calls while active, and
+    keep the first EP call's input (the served layer's)."""
+    seen = {"ep": 0, "block": 0, "x": None}
+    real_ep, real_block = moe_module.moe_block_ep, moe_module.moe_block
+
+    def ep(p, x, *args):
+        seen["ep"] += 1
+        if seen["x"] is None:
+            seen["x"] = x.detach().clone()
+        return real_ep(p, x, *args)
+
+    def block(*args):
+        seen["block"] += 1
+        return real_block(*args)
+
+    moe_module.moe_block_ep, moe_module.moe_block = ep, block
+    try:
+        yield seen
+    finally:
+        moe_module.moe_block_ep, moe_module.moe_block = real_ep, real_block
+
+
+def hold_ep(mesh, model, x: torch.Tensor) -> dict:
+    """``moe_block_ep`` against ``moe_block`` on the served layer's input
+    at a capacity where no slot drops: bf16 on the whole layer within
+    the bf16 limit (bitwise reported), and f32 on the layer's first
+    ``MESH_F32_EXPERTS`` experts cast up within 1e-4 relative."""
+    p = model.layers[0].moe
+    moe = model.cfg.moe
+    full = dataclasses.replace(moe, capacity_factor=moe.n_experts / moe.top_k)
+    dp = ("data",)
+    with torch.inference_mode():
+        y_ep, aux_ep = moe_module.moe_block_ep(p, x, full, mesh, dp, "model")
+        y, aux = moe_module.moe_block(p, x, full)
+        e = min(MESH_F32_EXPERTS, moe.n_experts)
+        sub = dataclasses.replace(moe, n_experts=e, capacity_factor=e / moe.top_k)
+        p32 = {"router": p["router"][:, :e].float(),
+               **{n: p[n][:e].float() for n in ("w_gate", "w_up", "w_down")}}
+        y32_ep, aux32_ep = moe_module.moe_block_ep(p32, x.float(), sub, mesh,
+                                                   dp, "model")
+        y32, aux32 = moe_module.moe_block(p32, x.float(), sub)
+    limit = bf16_drift_limit(MESH_LAYERS)
+    row = {"tokens": x.shape[0] * x.shape[1], "capacity_factor":
+           full.capacity_factor, "bf16_rel_err": rel_err(y_ep, y.double()),
+           "bf16_limit": limit, "bf16_bitwise": bool(torch.equal(y_ep, y)),
+           "aux_err": abs(float(aux_ep) - float(aux)),
+           "f32_experts": e, "f32_rel_err": rel_err(y32_ep, y32.double()),
+           "f32_limit": 1e-4, "f32_aux_err": abs(float(aux32_ep)
+                                                 - float(aux32))}
+    if not (row["bf16_rel_err"] <= limit and row["f32_rel_err"] <= 1e-4
+            and row["aux_err"] <= 1e-6 and row["f32_aux_err"] <= 1e-6):
+        raise AssertionError(f"mesh-kimi EP against moe_block: {row}")
+    del p32, y32_ep, y32
+    return row
+
+
+def mesh_kimi(seed: int, dev, gen, mesh, smoke: bool = False
+              ) -> tuple[dict, list]:
+    """kimi-k2-1t-a32b at full width, cut to one layer, bf16, served
+    through the launcher's steps and defaults with every MoE call through
+    ``moe_block_ep`` on the one-rank card mesh -> (launches, kernel rows
+    at kimi's head)."""
+    t_sub = time.perf_counter()
+    base = (get_smoke_config if smoke else get_config)(MESH_ARCH)
+    cut = base.with_(n_layers=MESH_LAYERS)
+    argv = ["--arch", MESH_ARCH, "--coded", "--seed", str(seed),
+            "--device", str(dev)] + (["--smoke"] if smoke else [])
+    args = launcher.parse_args(argv)
+    torch.cuda.reset_peak_memory_stats()
+    free = torch.cuda.mem_get_info()[0]
+
+    # the main path: build (the launcher reads the cut config), place,
+    # serve under the EP context, the launcher's coded-head check
+    reset_launch_counts()
+    real_config = launcher.get_smoke_config if smoke else launcher.get_config
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as st:
+        st.callback(setattr, launcher,
+                    "get_smoke_config" if smoke else "get_config",
+                    real_config)
+        setattr(launcher, "get_smoke_config" if smoke else "get_config",
+                lambda arch: cut)
+        (cfg, model, params, engine), printed = launcher_call(
+            launcher.build, args)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    expect_counts("mesh-kimi build", launch_counts(), bcsr_matmul=0,
+                  cyclic_encode=1, decode_matmul=0)
+    mem = {"build": torch.cuda.memory_allocated() / 1e9}
+    placed = place_params(mesh, model, cfg)
+    plan = engine.coded
+    timer = StepTimer(engine)
+    rng = np.random.default_rng(args.seed)
+    reqs = launcher.make_requests(args, cfg, rng)
+    def ep():
+        return expert_parallel(mesh, ("data",), "model")
+
+    before = launch_counts()
+    t0 = time.perf_counter()
+    with ep(), ep_calls() as calls, RouteLog() as routed:
+        out, lines = launcher_call(launcher.serve, engine, reqs)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    printed += lines
+    expect_counts("mesh-kimi serving", launched_since(before),
+                  bcsr_matmul=0, cyclic_encode=0, decode_matmul=0)
+    if calls["ep"] == 0 or calls["block"] != 0:
+        raise AssertionError(f"mesh-kimi: MoE calls {calls['ep']} through "
+                             f"moe_block_ep, {calls['block']} around it")
+    before = launch_counts()
+    worst, lines = launcher_call(launcher.check_coded_head, args, cfg,
+                                 params, engine, rng)
+    printed += lines
+    expect_counts("mesh-kimi launcher coded check", launched_since(before),
+                  bcsr_matmul=5, cyclic_encode=0, decode_matmul=5)
+    counts = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    mem["served"] = torch.cuda.memory_allocated() / 1e9
+    if len(out) != args.requests or any(
+            len(r.output) != args.max_new or not all(
+                0 <= t < cfg.vocab for t in r.output) for r in out):
+        raise AssertionError(f"mesh-kimi: {[r.output for r in out]}")
+    decode_ms = timer.ms("decode")
+    context = float(np.mean([len(r.prompt) for r in reqs])) \
+        + args.max_new / 2
+    share = expert_share(routed, cfg.moe.n_experts, args.batch)
+    bound_ms = decode_step_bytes(model, args.batch, context, share) \
+        / HBM_BYTES_PER_S * 1e3
+
+    # the checks: EP against moe_block, the cache against a fresh
+    # forward without the EP context, the coded head under 5 masks
+    before = launch_counts()
+    ep_row = hold_ep(mesh, model, calls["x"])
+    mem["ep_check"] = torch.cuda.memory_allocated() / 1e9
+    toks = left_padded([r.prompt for r in reqs[: args.batch]])
+    cache_row = check_cache(model, toks, args.max_len,
+                            bf16_drift_limit(MESH_LAYERS), FAMILY_STEPS,
+                            cached=ep)
+    with ep():
+        step = step_census(model, toks, args.max_len)
+    expect_counts("mesh-kimi checks", launched_since(before),
+                  bcsr_matmul=0, cyclic_encode=0, decode_matmul=0)
+    patterns, masks, hidden = check_head(plan, engine, cfg, params, gen,
+                                         dev, "mesh-kimi")
+    mem["head_check"] = torch.cuda.memory_allocated() / 1e9
+    line = dict(arch=cfg.name,
+         reduced=[f"n_layers {base.n_layers} -> {MESH_LAYERS}"],
+         dtype=str(model.dtype).removeprefix("torch."),
+         params_b=sum(p.numel() for p in model.parameters()) / 1e9,
+         layers=cfg.n_layers, d_model=cfg.d_model, heads=cfg.attn.n_heads,
+         kv_heads=cfg.attn.n_kv_heads, experts=cfg.moe.n_experts,
+         top_k=cfg.moe.top_k, d_expert=cfg.moe.d_expert, vocab=cfg.vocab,
+         mesh={"shape": list(mesh.shape), "axes": list(mesh.mesh_dim_names),
+               "backend": "nccl", "ranks": 1},
+         placed_specs=placed, free_gb_before=free / 1e9,
+         requests=args.requests, batch=args.batch, max_new=args.max_new,
+         n=plan.n, s=plan.s, k=plan.k, backend=plan.backend,
+         served=len(out), serve_s=serve_s, build_s=build_s,
+         moe_ep_calls=calls["ep"], moe_block_calls=calls["block"],
+         decode_steps=len(decode_ms),
+         decode_step_p50_ms=float(np.median(decode_ms)),
+         decode_step_ms_min=min(decode_ms), decode_step_ms_max=max(decode_ms),
+         bound_ms=bound_ms, bound_by="bytes", decode_expert_share=share,
+         bound_note="weights (routed experts only) + K/V at the mean "
+                    "context over 3.35 TB/s",
+         decode_step_busy_share=step["busy_share"],
+         peak_memory_gb=peak_gb, launcher_worst_rel_err=worst,
+         ep=ep_row, cache=cache_row, coded_patterns=patterns,
+         allocated_gb=mem, launches=counts,
+         printed=printed)
+    # the head's kernel rows need only the plan (and the head it holds):
+    # the plain encode's f32 temporaries (~25 GB) do not fit beside the
+    # layer's experts
+    del model, params, engine, calls, timer, routed
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = kernels_serve({"engine": argparse.Namespace(coded=plan),
+                          "hidden": hidden, "done": masks[0]}, reps=20,
+                         case="kimi head")
+    emit("mesh", sub="mesh-kimi", **line,
+         wall_s=time.perf_counter() - t_sub)
+    return counts, rows
+
+
+def mesh_restore(seed: int, dev, mesh) -> dict:
+    """A smoke-config checkpoint written by the port's trainer on the
+    card, restored with ``restore_resharded`` onto the card mesh by
+    ``param_shardings`` / ``zero1_shardings``: every leaf bitwise the
+    saved array."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.optim.adamw import init_state
+    from repro_torch.parallel import param_shardings, zero1_shardings
+    from repro_torch.train import checkpoint
+
+    t_sub = time.perf_counter()
+    cfg = get_smoke_config(MESH_RESTORE_ARCH)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=4)
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        model = build_model(cfg, torch.float32, device=dev)
+        tr = Trainer(model, AdamWConfig(lr=1e-3, warmup_steps=1,
+                                        total_steps=2),
+                     TrainConfig(steps=2, ckpt_every=2, log_every=100,
+                                 ckpt_dir=tmp))
+        tr.fit(lambda start: make_pipeline(dcfg, start),
+               gen=torch.Generator(dev).manual_seed(seed))
+        step = checkpoint.latest_step(tmp)
+        params = {k: v.detach() for k, v in model.named_parameters()}
+        template = {"params": params,
+                    "opt": init_state(AdamWConfig(), params)}
+        zs = zero1_shardings(mesh, params, cfg)
+        got = checkpoint.restore_resharded(
+            tmp, step, template,
+            {"params": param_shardings(mesh, params, cfg),
+             "opt": {"step": None, "m": zs, "v": zs}}, mesh=mesh, cfg=cfg)
+        saved = checkpoint.load(tmp, step)
+    leaves = mismatched = 0
+    for part, tree in (("params", got["params"]), ("m", got["opt"]["m"]),
+                       ("v", got["opt"]["v"])):
+        for name, t in tree.items():
+            key, _ = reference_key(name, cfg)
+            prefix = "['params']" if part == "params" else f"['opt']['{part}']"
+            want = saved[prefix + key]
+            layer = int(name.split(".")[1]) // len(cfg.pattern) \
+                if name.startswith("layers.") else None
+            if layer is not None:
+                want = want[layer]
+            leaves += 1
+            if not (isinstance(t, DTensor) and t.device.type == dev.type
+                    and torch.equal(t.full_tensor().cpu(),
+                                    torch.from_numpy(want))):
+                mismatched += 1
+    row = {"arch": cfg.name, "step": step, "leaves": leaves,
+           "mismatched": mismatched, "opt_step": int(got["opt"]["step"]),
+           "bitwise": mismatched == 0}
+    emit("mesh", sub="mesh-restore", **row,
+         wall_s=time.perf_counter() - t_sub)
+    if mismatched or row["opt_step"] != step:
+        raise AssertionError(f"mesh-restore: {row}")
+    return row
+
+
+def mesh_dryrun(proc: subprocess.Popen) -> dict:
+    """Wait for the dry-run subprocess and hold its artifacts: both cells
+    ``ok``, the roofline's three terms for each."""
+    t_sub = time.perf_counter()
+    try:
+        proc.wait(timeout=DRYRUN_TIMEOUT_S)
+    finally:
+        stop_dryrun(proc)
+    root = Path(__file__).resolve().parent / "build"
+    out = (root / "dryrun.out").read_text()
+    err = (root / "dryrun.err").read_text()
+    if proc.returncode != 0:
+        raise AssertionError(f"mesh-dryrun failed: {out[-2000:]} "
+                             f"{err[-3000:]}")
+    rows = {(r["arch"], r["shape"]): r for r in
+            json.loads((root / "roofline.json").read_text())}
+    cells = []
+    for arch, shape, opts, micro in DRYRUN_CELLS:
+        suffix = (f"__{opts}" if opts else "") \
+            + (f"__mb{micro}" if micro != 4 else "")
+        art = json.loads((root / "dryrun" / f"{arch}__{shape}__32x8"
+                          f"{suffix}.json").read_text())
+        if art["status"] != "ok":
+            raise AssertionError(f"mesh-dryrun {arch} {shape}: "
+                                 f"{art.get('error')} "
+                                 f"{art.get('traceback', '')[-1500:]}")
+        r = rows[(arch, shape)]
+        cells.append({
+            "arch": arch, "shape": shape, "opts": art["opts"],
+            "microbatches": micro, "status": art["status"],
+            "devices": art["devices"], "trace_s": art["compile_s"],
+            "flops": art["flops"], "flops_scope": art["flops_scope"],
+            "memory": art["memory"],
+            "collective_bytes": art["collective_bytes"],
+            "collective_counts": art["collective_counts"],
+            "t_compute_s": r["t_compute_s"], "t_memory_s": r["t_memory_s"],
+            "t_collective_s": r["t_collective_s"],
+            "dominant": r["dominant"], "projected_mfu": r["projected_mfu"]})
+    times = [line for line in err.splitlines() if line.startswith("real")]
+    row = {"cells": cells, "process_s": times,
+           "reduced": ["kimi train_4k: --microbatches 4 -> 1"]}
+    emit("mesh", sub="mesh-dryrun", **row,
+         wait_s=time.perf_counter() - t_sub)
+    return row
+
+
+def phase_mesh(seed: int, dev, gen, dryrun: subprocess.Popen,
+               smoke: bool = False) -> tuple[dict, list]:
+    """Phase 12: ``mesh-kimi`` (the main path), ``mesh-restore`` and
+    ``mesh-dryrun`` (the dry run started with phase 11, host only).
+    ``smoke``: kimi's smoke config, for a rehearsal on the CPU."""
+    free_memory("memory", phase="mesh")
+    with card_mesh(dev) as mesh:
+        torch.cuda.synchronize()
+        counts, rows = mesh_kimi(seed, dev, gen, mesh, smoke)
+        gc.collect()
+        torch.cuda.empty_cache()
+        mesh_restore(seed, dev, mesh)
+    mesh_dryrun(dryrun)
+    emit("mesh", sub="total", launches=counts)
+    return counts, rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3782,8 +4213,15 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     models_counts, models_rows = phase_models(args.seed, dev, gen)
     rows += models_rows
-    train_counts, train_rows = phase_train(args.seed, dev)
-    rows += train_rows
+    # the dry run is host only: it runs beside phases 11 and 12
+    dryrun = start_dryrun(Path(__file__).resolve().parent)
+    try:
+        train_counts, train_rows = phase_train(args.seed, dev)
+        rows += train_rows
+        mesh_counts, mesh_rows = phase_mesh(args.seed, dev, gen, dryrun)
+        rows += mesh_rows
+    finally:
+        stop_dryrun(dryrun)
 
     if args.parent is not None:
         root = Path(__file__).resolve().parent
@@ -3806,13 +4244,26 @@ def main(argv=None) -> int:
             "launches": (mv_counts[name] + mm_counts[name]
                          + serve_counts[name] + cluster_counts[name]
                          + edge_counts[name] + front_counts[name]
-                         + models_counts[name] + train_counts[name]),
+                         + models_counts[name] + train_counts[name]
+                         + mesh_counts[name]),
             "max_abs_err": main_row["max_abs_err"], "ms": main_row["ms"],
             "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"],
-            "shape": main_row["shape"],
+            "shape": main_row["shape"], "case": "mv",
+        })
+    # the same kernels at kimi-k2-1t-a32b's head (phase 12), with the
+    # launches of that path
+    for name, (source, replaces) in SOURCES.items():
+        row = next(r for r in mesh_rows if r["name"] == name)
+        table.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": mesh_counts[name],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "shape": row["shape"], "case": row["case"],
         })
     print(json.dumps({"kernels": table}), flush=True)
     print(smi, flush=True)

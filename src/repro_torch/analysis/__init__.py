@@ -1,2 +1,4 @@
-"""Analytic FLOP / byte models.  ``hlo`` and ``roofline`` wait for the
-mesh slice (ROADMAP.md §1 item 14)."""
+"""Analytic FLOP / byte models (``flops``), the collectives a step
+dispatches (``collectives``, the counterpart of the reference's HLO
+parser ``hlo``), and the roofline over dry-run artifacts
+(``roofline``)."""

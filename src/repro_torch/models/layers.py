@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import AttnConfig
+from ..parallel.ctx import per_head, reshape, shard
 
 # ---------------------------------------------------------------------------
 # Norms, activations, embeddings
@@ -117,9 +118,11 @@ def _project_qkv(p: dict, x: torch.Tensor, a: AttnConfig,
                  positions: torch.Tensor, eps: float):
     b, s, _ = x.shape
     h, kv, hd = a.n_heads, a.n_kv_heads, a.head_dim
-    q = torch.einsum("bsd,de->bse", x, p["wq"]).reshape(b, s, h, hd)
-    k = torch.einsum("bsd,de->bse", x, p["wk"]).reshape(b, s, kv, hd)
-    v = torch.einsum("bsd,de->bse", x, p["wv"]).reshape(b, s, kv, hd)
+    q = reshape(torch.einsum("bsd,de->bse", x, p["wq"]), b, s, h, hd)
+    k = reshape(torch.einsum("bsd,de->bse", x, p["wk"]), b, s, kv, hd)
+    v = reshape(torch.einsum("bsd,de->bse", x, p["wv"]), b, s, kv, hd)
+    # sharding cut point (the reference's): pins the q/k/v layout once
+    q, k, v = shard("attn_q", q), shard("attn_kv", k), shard("attn_kv", v)
     if a.qk_norm:
         q = rms_norm(q, p["q_norm"], eps)
         k = rms_norm(k, p["k_norm"], eps)
@@ -147,12 +150,13 @@ def _mask_bias(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
     return torch.where(ok, zero, -math.inf)
 
 
+@per_head
 def attention_plain(q, k, v, qpos, kpos, causal=True, window=None):
     """q (B,Sq,H,D), k/v (B,Sk,KV,D) -> (B,Sq,H,D).  GQA via grouping."""
     b, sq, h, d = q.shape
     kvh = k.shape[2]
     g = h // kvh
-    qg = q.reshape(b, sq, kvh, g, d)
+    qg = reshape(q, b, sq, kvh, g, d)
     scores = torch.einsum("bqkgd,bpkd->bkgqp", qg.float(), k.float()) \
         * (d ** -0.5)
     bias = _mask_bias(qpos, kpos, causal, window)      # (B?, Sq, Sk)
@@ -160,7 +164,7 @@ def attention_plain(q, k, v, qpos, kpos, causal=True, window=None):
         else scores + bias[None, None, None, :, :]
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqp,bpkd->bqkgd", w.to(v.dtype).float(), v.float())
-    return out.reshape(b, sq, h, d).to(q.dtype)
+    return reshape(out, b, sq, h, d).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -168,6 +172,7 @@ def attention_plain(q, k, v, qpos, kpos, causal=True, window=None):
 # ---------------------------------------------------------------------------
 
 
+@per_head
 def attention_chunked(q, k, v, causal=True, window=None, chunk=512):
     """Online-softmax over query and key chunks.  q (B,S,H,D), k/v
     (B,S,KV,D).
@@ -184,9 +189,9 @@ def attention_chunked(q, k, v, causal=True, window=None, chunk=512):
     nq = s // qc
     scale = d ** -0.5
     dev = q.device
-    qg = q.reshape(b, nq, qc, kvh, g, d)
-    kc_ = k.reshape(b, nq, qc, kvh, d)
-    vc_ = v.reshape(b, nq, qc, kvh, d)
+    qg = reshape(q, b, nq, qc, kvh, g, d)
+    kc_ = reshape(k, b, nq, qc, kvh, d)
+    vc_ = reshape(v, b, nq, qc, kvh, d)
     ar = torch.arange(qc, device=dev)
     outs = []
     for iq in range(nq):
@@ -216,7 +221,7 @@ def attention_chunked(q, k, v, causal=True, window=None, chunk=512):
             m = m_new
         out = acc / torch.clamp(l_[..., None], min=1e-30)   # (b,kv,g,qc,d)
         outs.append(out.permute(0, 3, 1, 2, 4))             # (b,qc,kv,g,d)
-    out = torch.cat(outs, dim=1).reshape(b, s, h, d)
+    out = reshape(torch.cat(outs, dim=1), b, s, h, d)
     return out.to(q.dtype)
 
 
@@ -251,7 +256,7 @@ def attention_block(p: dict, x: torch.Tensor, a: AttnConfig, *, eps: float,
     q, k, v = _project_qkv(p, x, a, positions, eps)
     out = self_attention(q, k, v, causal=a.causal, window=window, impl=impl,
                          chunk=chunk)
-    return torch.einsum("bse,ed->bsd", out.reshape(b, s, -1), p["wo"])
+    return torch.einsum("bse,ed->bsd", reshape(out, b, s, -1), p["wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -279,7 +284,9 @@ def attention_decode(p: dict, x: torch.Tensor, cache: dict, step: int,
     """
     b = x.shape[0]
     dev = x.device
-    positions = torch.full((b, 1), step, device=dev)
+    # one position for every row (broadcast): no batch dim, so a mesh's
+    # attention can run on each rank's rows (ctx.per_head)
+    positions = torch.full((1, 1), step, device=dev)
     q, k_new, v_new = _project_qkv(p, x, a, positions, eps)
     ck, cv = cache["k"], cache["v"]
     length = ck.shape[1]
@@ -287,6 +294,7 @@ def attention_decode(p: dict, x: torch.Tensor, cache: dict, step: int,
     slot = step % length if window else min(step, length - 1)
     ck[:, slot] = k_new[:, 0].to(ck.dtype)
     cv[:, slot] = v_new[:, 0].to(cv.dtype)
+    ck, cv = shard("attn_kv", ck), shard("attn_kv", cv)
 
     idx = torch.arange(length, device=dev)
     if window:
@@ -297,9 +305,9 @@ def attention_decode(p: dict, x: torch.Tensor, cache: dict, step: int,
         kpos = torch.where(valid, kpos, step + 1)  # invalid -> future -> masked
     else:
         kpos = torch.where(idx <= step, idx, step + 1)
-    out = attention_plain(q, ck, cv, positions, kpos[None, :].repeat(b, 1),
+    out = attention_plain(q, ck, cv, positions, kpos[None, :],
                           causal=True, window=window)
-    y = torch.einsum("bse,ed->bsd", out.reshape(b, 1, -1), p["wo"])
+    y = torch.einsum("bse,ed->bsd", reshape(out, b, 1, -1), p["wo"])
     return y, {"k": ck, "v": cv}
 
 

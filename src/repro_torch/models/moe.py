@@ -1,8 +1,7 @@
 """Mixture-of-Experts layer with sort-based token dispatch, and its coded
 (straggler-resilient) expert FFN.
 
-The counterpart of ``repro.models.moe`` without expert parallelism
-(``moe_block_ep`` waits for the mesh slice, ROADMAP.md §1 item 14):
+The counterpart of ``repro.models.moe``:
 
   * Dispatch is gather-based: each token's slot comes from an argsort +
     rank (integer ops), tokens are scattered into an (E, C, d) buffer,
@@ -19,6 +18,10 @@ The counterpart of ``repro.models.moe`` without expert parallelism
     routing is discontinuous, and a logit off in its last bit can flip
     the k-th expert.
 
+``moe_block_ep`` is the expert-parallel execution on a mesh (``local_map``
+with functional collectives), which ``moe_apply`` takes when an
+expert-parallel context is set (``repro_torch.parallel.ctx``).
+
 ``CodedMoE`` runs every expert weight matmul through a compiled
 ``repro_torch.api.CodedPlan``: on the card (``backend="auto"`` resolves
 to ``cuda``) each plan's compile is one ``cyclic_encode`` and each
@@ -33,6 +36,14 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import MoEConfig
+from ..parallel.ctx import (
+    all_gather,
+    ep_context,
+    pmean,
+    psum,
+    shard,
+    shard_map_compat,
+)
 from .layers import normal_
 
 
@@ -110,7 +121,9 @@ def _route_tokens(router: torch.Tensor, tokens: torch.Tensor,
     fp = top_p.reshape(-1)
     tok_id = torch.arange(t, device=dev).repeat_interleave(k)
     order = torch.argsort(fe, stable=True)
-    counts = torch.bincount(fe, minlength=e)
+    # bincount's integers from a scatter-add, which meta tensors have
+    counts = torch.zeros(e, dtype=fe.dtype, device=dev).scatter_add(
+        0, fe, torch.ones_like(fe))
     starts = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)[:-1]])
     ranks = torch.arange(t * k, device=dev) - starts[fe[order]]
     pos = torch.zeros(t * k, dtype=torch.long, device=dev)
@@ -166,10 +179,15 @@ def moe_block(p: dict, x: torch.Tensor, moe: MoEConfig
     aux, fp, tok_id, keep, dest = _route_tokens(p["router"], tokens, moe, cap)
 
     # --- dispatch -> expert FFN -> combine ----------------------------------
-    xe = _dispatch(tokens, tok_id, dest, e, cap)
-    g = torch.einsum("ecd,edh->ech", xe, p["w_gate"])
-    u = torch.einsum("ecd,edh->ech", xe, p["w_up"])
-    ye = torch.einsum("ech,ehd->ecd", F.silu(g) * u, p["w_down"])
+    xe = shard("moe_xe", _dispatch(tokens, tok_id, dest, e, cap))
+    # FSDP cut point: regather the expert weights over the 'data' axis
+    # once per layer instead of contracting over the sharded d_model dim
+    w_gate = shard("moe_w", p["w_gate"])
+    w_up = shard("moe_w", p["w_up"])
+    w_down = shard("moe_w", p["w_down"])
+    g = torch.einsum("ecd,edh->ech", xe, w_gate)
+    u = torch.einsum("ecd,edh->ech", xe, w_up)
+    ye = torch.einsum("ech,ehd->ecd", F.silu(g) * u, w_down)
     out = _combine_slots(ye, fp, tok_id, keep, dest, t, x.dtype)
 
     if moe.n_shared_experts:
@@ -178,11 +196,113 @@ def moe_block(p: dict, x: torch.Tensor, moe: MoEConfig
     return out.reshape(b, s, d), aux
 
 
+# ---------------------------------------------------------------------------
+# Expert-parallel local_map path
+# ---------------------------------------------------------------------------
+
+
+def _ep_specs(mesh, dp_axes: tuple[str, ...], model_axis: str):
+    """(in_specs, in_grad_specs, out_specs) of ``moe_block_ep``'s body:
+    the reference's in/out specs as placements, and where each input's
+    gradient is partial (summed over ranks that each hold a part)."""
+    from torch.distributed.tensor import Partial  # noqa: PLC0415
+
+    from ..parallel.sharding import placements  # noqa: PLC0415
+
+    data = dp_axes[-1]
+    names = tuple(mesh.mesh_dim_names)
+    dp = tuple(dp_axes)
+    specs = [(None, None), (model_axis, data, None), (model_axis, data, None),
+             (model_axis, None, data), (dp, None, None)]
+    ins = [placements(mesh, sp) for sp in specs]
+    # the router's gradient is each rank's part; an expert shard's is
+    # summed over the gathered 'data' ranks by the gather's backward,
+    # partial over the other DP axes; x's is partial over 'model'
+    held = [(), (model_axis, data), (model_axis, data), (model_axis, data),
+            dp]
+    grads = [[pl if name in keep else Partial()
+              for name, pl in zip(names, pls)]
+             for pls, keep in zip(ins, held)]
+    outs = [placements(mesh, (dp, None, None)), placements(mesh, ())]
+    return ins, grads, outs
+
+
+def moe_block_ep(p: dict, x: torch.Tensor, moe: MoEConfig, mesh,
+                 dp_axes: tuple[str, ...], model_axis: str
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """local_map MoE: the scalable EP execution.
+
+    Per (data x model) rank:
+      * route ALL local tokens (router compute duplicated across the
+        model axis -- negligible);
+      * build the dispatch buffer ONLY for this model-shard's
+        E/model_parallelism experts -- local integer ops, no
+        collectives;
+      * all-gather this shard's expert weights over 'data' (FSDP
+        regather, once per layer; none on a one-rank 'data' axis);
+      * FFN + local combine, then ONE sum over 'model' adds the expert
+        contributions into the (T_local, d) output.
+
+    Capacity is enforced per data shard (GShard "local groups"
+    semantics); ``aux`` is averaged over every rank; the shared expert is
+    added outside.  ``p`` and ``x`` may be DTensors on ``mesh`` (then
+    ``out`` is one) or plain tensors, the global values (then ``out`` is
+    plain, as the reference's shard_map returns a global array).  With
+    ``E % model != 0`` this is ``moe_block``, as in the reference.
+    """
+    b, s, d = x.shape
+    e = moe.n_experts
+    names = tuple(mesh.mesh_dim_names)
+    n_model = mesh.size(names.index(model_axis))
+    if e % n_model:
+        return moe_block(p, x, moe)   # EP needs E % model == 0
+    e_local = e // n_model
+    data_group = mesh.get_group(dp_axes[-1])
+    model_group = mesh.get_group(model_axis)
+    groups = [mesh.get_group(a) for a in dp_axes] + [model_group]
+    e0 = mesh.get_local_rank(model_axis) * e_local
+
+    def inner(router, w_gate, w_up, w_down, xx):
+        bl, sl, _ = xx.shape
+        t = bl * sl
+        cap = _capacity(t, moe)
+        toks = xx.reshape(t, d)
+        # weights arrive as (E_local, d_local, h): regather over data
+        w_g = all_gather(w_gate, data_group, 1)
+        w_u = all_gather(w_up, data_group, 1)
+        w_d = all_gather(w_down, data_group, 2)
+
+        aux, fp, tok_id, keep, dest = _route_tokens(router, toks, moe, cap)
+        aux = pmean(aux, groups)
+        # keep only this shard's experts
+        mine = keep & (dest >= e0 * cap) & (dest < (e0 + e_local) * cap)
+        dest = torch.where(mine, dest - e0 * cap, e_local * cap)
+        xe = _dispatch(toks, tok_id, dest, e_local, cap)
+        g = torch.einsum("ecd,edh->ech", xe, w_g)
+        u = torch.einsum("ecd,edh->ech", xe, w_u)
+        ye = torch.einsum("ech,ehd->ecd", F.silu(g) * u, w_d)
+        out = _combine_slots(ye, fp.to(xx.dtype), tok_id, mine, dest, t,
+                             xx.dtype)
+        out = psum(out.float(), model_group)
+        return out.to(xx.dtype).reshape(bl, sl, d), aux
+
+    ins, grads, outs = _ep_specs(mesh, dp_axes, model_axis)
+    fn = shard_map_compat(inner, mesh=mesh, in_specs=ins, out_specs=outs,
+                          in_grad_specs=grads)
+    out, aux = fn(p["router"], p["w_gate"], p["w_up"], p["w_down"], x)
+
+    if moe.n_shared_experts:
+        out = out + _shared_expert(p["shared"], x.reshape(-1, d)).reshape(
+            b, s, d)
+    return out, aux
+
+
 def moe_apply(p: dict, x: torch.Tensor, moe: MoEConfig):
-    """The MoE layer on one device: ``moe_block``.  The reference
-    dispatches to its expert-parallel ``moe_block_ep`` when a mesh
-    context is set; that path waits for the port's mesh layer (ROADMAP.md
-    §1 item 14)."""
+    """Dispatch to the EP path when an expert-parallel context is set."""
+    ep = ep_context()
+    if ep is not None:
+        mesh, dp, model_axis = ep
+        return moe_block_ep(p, x, moe, mesh, dp, model_axis)
     return moe_block(p, x, moe)
 
 

@@ -44,11 +44,13 @@ from __future__ import annotations
 import functools
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .._device import as_tensor, resolve_device
 from ..configs.base import ModelConfig
+from ..parallel.ctx import reshape, shard
 from .layers import (
     _project_qkv,
     attention_decode,
@@ -85,9 +87,9 @@ def sharded_cross_entropy(logits: torch.Tensor, labels: torch.Tensor
                           ) -> torch.Tensor:
     """The reference's CE, reduction for reduction: a max taken without
     gradient, log-sum-exp of the shifted logits, the label's logit
-    picked by a one-hot multiply-reduce, and labels < 0 masked out.  The
-    port runs on one device, so nothing is sharded; the name is the
-    reference's."""
+    picked by a one-hot multiply-reduce, and labels < 0 masked out.  On
+    a mesh the logits' vocab dim may be sharded (``shard("logits")``):
+    DTensor lowers each reduction to its shards."""
     logits = logits.float()
     labels = labels.long()
     zmax = logits.max(dim=-1, keepdim=True).values.detach()
@@ -256,7 +258,9 @@ class TransformerLM(nn.Module):
 
     def _embed(self, tokens, image_embeds=None) -> torch.Tensor:
         tokens = as_tensor(tokens, self.device).long()
-        x = self.embed[tokens].to(self.dtype)
+        # a gather whose backward DTensor shards on a mesh (the vocab-
+        # parallel embedding); the values are self.embed[tokens]'s
+        x = F.embedding(tokens, self.embed).to(self.dtype)
         if self.cfg.vision_tokens and image_embeds is not None:
             img = as_tensor(image_embeds, self.device).to(self.dtype)
             x = torch.cat([img, x], dim=1)
@@ -265,7 +269,7 @@ class TransformerLM(nn.Module):
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         head = self.embed.T if self.cfg.tie_embeddings else self.head
-        return torch.einsum("bsd,dv->bsv", x, head).float()
+        return shard("logits", torch.einsum("bsd,dv->bsv", x, head).float())
 
     def _ffn(self, blk: Block, x: torch.Tensor):
         """Pre-norm FFN residual -> (x, aux)."""
@@ -276,8 +280,11 @@ class TransformerLM(nn.Module):
             return x + y, aux
         return x + mlp_block(blk.mlp, h, cfg.act), None
 
-    def _layer(self, blk: Block, x: torch.Tensor, causal: bool):
-        """One attention layer over a whole sequence -> (x, k, v, aux)."""
+    def _layer(self, blk: Block, x: torch.Tensor, causal: bool,
+               cut: bool = False):
+        """One attention layer over a whole sequence -> (x, k, v, aux);
+        ``cut``: the residual's sharding cut point between attention and
+        FFN (the reference's training layer has it, its prefill not)."""
         cfg = self.cfg
         b, s, _ = x.shape
         h = rms_norm(x, blk.norm1, cfg.norm_eps)
@@ -285,8 +292,10 @@ class TransformerLM(nn.Module):
         q, k, v = _project_qkv(blk.attn, h, cfg.attn, positions, cfg.norm_eps)
         o = self_attention(q, k, v, causal=causal, window=blk.window,
                            impl=cfg.attn_impl, chunk=cfg.attn_chunk)
-        x = x + torch.einsum("bse,ed->bsd", o.reshape(b, s, -1),
+        x = x + torch.einsum("bse,ed->bsd", reshape(o, b, s, -1),
                              blk.attn["wo"])
+        if cut:
+            x = shard("resid", x)
         x, aux = self._ffn(blk, x)
         return x, k, v, aux
 
@@ -297,15 +306,15 @@ class TransformerLM(nn.Module):
             return x + mamba_block(blk.mamba,
                                    rms_norm(x, blk.norm, cfg.norm_eps),
                                    cfg.ssm, eps=cfg.norm_eps), None
-        x, _, _, a = self._layer(blk, x, cfg.attn.causal)
-        return x, a
+        x, _, _, a = self._layer(blk, x, cfg.attn.causal, cut=True)
+        return shard("resid", x), a
 
     def forward(self, tokens, image_embeds=None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
         """Full forward -> (logits (B, S_total, V) f32, aux).  With grad
         enabled each layer is checkpointed as ``cfg.remat`` says."""
         cfg = self.cfg
-        x = self._embed(tokens, image_embeds)
+        x = shard("resid", self._embed(tokens, image_embeds))
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for blk in self._blocks():
             x, a = remat_layer(functools.partial(self._train_layer, blk),
@@ -347,7 +356,7 @@ class TransformerLM(nn.Module):
         them out; mamba layers keep the last ``d_conv - 1`` conv inputs
         and the final SSD state."""
         cfg = self.cfg
-        x = self._embed(tokens, image_embeds)
+        x = shard("resid", self._embed(tokens, image_embeds))
         b, s, _ = x.shape
         caches = []
         for blk in self._blocks():
@@ -355,7 +364,7 @@ class TransformerLM(nn.Module):
                 y, c = mamba_prefill(blk.mamba,
                                      rms_norm(x, blk.norm, cfg.norm_eps),
                                      cfg.ssm, eps=cfg.norm_eps)
-                x = x + y
+                x = shard("resid", x + y)
                 caches.append(c)
                 continue
             x, kk, vv, _ = self._layer(blk, x, causal=True)
@@ -373,7 +382,8 @@ class TransformerLM(nn.Module):
                 upto = min(s, length)
                 ck[:, :upto] = kk[:, :upto]
                 cv[:, :upto] = vv[:, :upto]
-            caches.append({"k": ck, "v": cv})
+            caches.append({"k": shard("kv", ck), "v": shard("kv", cv)})
+            x = shard("resid", x)
         logits = self._logits(x[:, -1:, :])
         return logits[:, 0], {"layers": caches, "step": s}
 
@@ -381,7 +391,10 @@ class TransformerLM(nn.Module):
         """One-token step.  tokens (B, 1) -> (logits (B, V), cache); the
         cache is advanced in place and returned."""
         cfg = self.cfg
-        x = self._embed(tokens)
+        # a cut point the reference's decode step does without: on a mesh
+        # the vocab-parallel embedding's output is a masked partial sum,
+        # which DTensor cannot add to the attention's partial sum
+        x = shard("resid", self._embed(tokens))
         step = cache["step"]
         for blk, c in zip(self._blocks(), cache["layers"]):
             if blk.kind == "M":

@@ -20,10 +20,12 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .._device import as_tensor, resolve_device
 from ..configs.base import ModelConfig
+from ..parallel.ctx import reshape, shard
 from .layers import (
     _project_qkv,
     attention_block,
@@ -45,19 +47,19 @@ def _cross_attention(p, x, enc_kv, a):
     """x (B,Sq,d) queries against precomputed encoder K/V."""
     b, sq, _ = x.shape
     h, hd = a.n_heads, a.head_dim
-    q = torch.einsum("bsd,de->bse", x, p["wq"]).reshape(b, sq, h, hd)
+    q = reshape(torch.einsum("bsd,de->bse", x, p["wq"]), b, sq, h, hd)
     k, v = enc_kv
     qpos = torch.zeros((sq,), dtype=torch.long, device=x.device)
     kpos = torch.zeros((k.shape[1],), dtype=torch.long, device=x.device)
     o = attention_plain(q, k, v, qpos, kpos, causal=False, window=None)
-    return torch.einsum("bse,ed->bsd", o.reshape(b, sq, -1), p["wo"])
+    return torch.einsum("bse,ed->bsd", reshape(o, b, sq, -1), p["wo"])
 
 
 def _encode_kv(p, enc_out, a):
     b, f, _ = enc_out.shape
     kv, hd = a.n_kv_heads, a.head_dim
-    k = torch.einsum("bsd,de->bse", enc_out, p["wk"]).reshape(b, f, kv, hd)
-    v = torch.einsum("bsd,de->bse", enc_out, p["wv"]).reshape(b, f, kv, hd)
+    k = reshape(torch.einsum("bsd,de->bse", enc_out, p["wk"]), b, f, kv, hd)
+    v = reshape(torch.einsum("bsd,de->bse", enc_out, p["wv"]), b, f, kv, hd)
     return k, v
 
 
@@ -131,14 +133,17 @@ class WhisperLM(nn.Module):
             x = x + attention_block(lyr.attn, h, bidir, eps=cfg.norm_eps,
                                     impl="plain")
             h = rms_norm(x, lyr.norm2, cfg.norm_eps)
-            x = x + mlp_block(lyr.mlp, h, cfg.act)
+            x = shard("resid", x + mlp_block(lyr.mlp, h, cfg.act))
         return rms_norm(x, self.enc_norm, cfg.norm_eps)
 
     # -------------------- decoder --------------------
 
     def _embed(self, tokens) -> torch.Tensor:
         tokens = as_tensor(tokens, self.device).long()
-        return self.embed[tokens].to(self.dtype)
+        # a cut point the reference does without: on a mesh the vocab-
+        # parallel embedding's output is a masked partial sum, which
+        # DTensor cannot add to the attention's partial sum
+        return shard("resid", F.embedding(tokens, self.embed).to(self.dtype))
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
@@ -160,9 +165,9 @@ class WhisperLM(nn.Module):
             h = rms_norm(x, lyr.norm1, cfg.norm_eps)
             x = x + attention_block(lyr.attn, h, cfg.attn, eps=cfg.norm_eps,
                                     impl=cfg.attn_impl, chunk=cfg.attn_chunk)
-            x = self._cross_and_ffn(lyr, x,
-                                    _encode_kv(lyr.xattn, enc_out, cfg.attn))
-        return (self._logits(x),
+            x = shard("resid", self._cross_and_ffn(
+                lyr, x, _encode_kv(lyr.xattn, enc_out, cfg.attn)))
+        return (shard("logits", self._logits(x)),
                 torch.zeros((), dtype=torch.float32, device=x.device))
 
     def train_loss(self, batch: dict) -> torch.Tensor:
@@ -203,7 +208,7 @@ class WhisperLM(nn.Module):
             q, kk, vv = _project_qkv(lyr.attn, h, cfg.attn, positions[None],
                                      cfg.norm_eps)
             o = attention_plain(q, kk, vv, positions, positions, causal=True)
-            x = x + torch.einsum("bse,ed->bsd", o.reshape(b, s, -1),
+            x = x + torch.einsum("bse,ed->bsd", reshape(o, b, s, -1),
                                  lyr.attn["wo"])
             xk, xv = _encode_kv(lyr.xattn, enc_out, cfg.attn)
             x = self._cross_and_ffn(lyr, x, (xk, xv))

@@ -17,8 +17,9 @@ differentiate (the JAX package takes it for traced inputs).
 
 Storage/computation overhead vs an uncoded layer is omega/k_A (omega ~=
 s+1 << k_A), while tolerating any s straggling workers per matmul.
-The JAX package's ``apply_sharded`` (one worker per mesh device) waits
-for the port's mesh layer (ROADMAP.md §1 item 14).
+``apply_sharded`` runs the paper's scheme with one worker per rank of a
+mesh axis: each rank's coded product, an all-gather of the partial
+products, and the decode replicated on every rank.
 """
 
 from __future__ import annotations
@@ -136,3 +137,36 @@ class CodedLinear:
         lead = x.shape[:-1]
         out = self.plan().matvec(x.reshape(-1, x.shape[-1]), done)
         return out.reshape(lead + (self.d_out,)).to(x.dtype)
+
+    # ------------------------------------------------------------------
+
+    def apply_sharded(self, mesh, axis: str, x, done=None) -> torch.Tensor:
+        """local_map apply: each ``axis`` rank computes its coded shard's
+        product; results all-gather over the axis; the decode is
+        replicated (k x k solve on a tiny matrix).  ``x`` is the global
+        input, the same on every rank (or a replicated DTensor); the
+        result is the decoded (..., d_out) on every rank."""
+        from ..parallel.ctx import all_gather, shard_map_compat  # noqa: PLC0415
+        from ..parallel.sharding import placements  # noqa: PLC0415
+
+        n = self.scheme.n
+        size = mesh.size(tuple(mesh.mesh_dim_names).index(axis))
+        if size != n:
+            raise ValueError(f"mesh axis {axis} has {size} "
+                             f"devices, scheme expects n={n}")
+        if done is None:
+            done = np.ones(n, bool)
+        group = mesh.get_group(axis)
+
+        def worker(coded_shard, xx):
+            # coded_shard: (1, d_in, c) local slice
+            y_local = torch.einsum("tc,...t->...c", coded_shard[0],
+                                   xx.to(coded_shard.dtype))
+            y_all = all_gather(y_local[None], group, 0)     # (n, ..., c)
+            return (self.decode(y_all, done),)
+
+        fn = shard_map_compat(worker, mesh=mesh,
+                              in_specs=[placements(mesh, (axis,)),
+                                        placements(mesh, ())],
+                              out_specs=[placements(mesh, ())])
+        return fn(self.coded, as_tensor(x, self.coded.device))[0]

@@ -16,8 +16,9 @@ stacked over the layer pattern's repeats) through
 ``repro_torch.convert``, so a checkpoint of either package restores into
 the other.
 
-``restore_resharded`` (restore onto a different mesh) waits for the
-port's mesh slice (ROADMAP.md §1 item 14).
+``restore_resharded`` restores the host-complete archive onto any mesh:
+each leaf placed with ``distribute_tensor`` by the given placements (the
+elastic-rescale path).
 """
 
 from __future__ import annotations
@@ -206,3 +207,59 @@ def restore_train_state(ckpt_dir: str | Path, step: int, cfg,
                                      device=step_t.device),
              "m": _checked(o["m"], opt_state["m"], "opt.m"),
              "v": _checked(o["v"], opt_state["v"], "opt.v")})
+
+
+def _distribute(tree, shardings, mesh):
+    """Each leaf of ``tree`` placed on ``mesh`` by the placements at the
+    same path of ``shardings``; a leaf whose placements are None (or
+    missing) is left whole."""
+    from torch.distributed.tensor import distribute_tensor  # noqa: PLC0415
+
+    if isinstance(tree, dict):
+        shardings = shardings or {}
+        return {k: _distribute(v, shardings.get(k), mesh)
+                for k, v in tree.items()}
+    if shardings is None or not isinstance(tree, torch.Tensor):
+        return tree
+    return distribute_tensor(tree, mesh, list(shardings))
+
+
+def restore_resharded(ckpt_dir: str | Path, step: int, template: dict,
+                      shardings: dict, *, mesh, cfg=None) -> dict:
+    """Restore and place each leaf on ``mesh`` with the placements of
+    ``shardings`` (a tree like ``template``; None leaves a leaf whole)
+    -- the elastic-rescale path (host-complete archive -> any mesh).
+
+    Without ``cfg`` the template is the archive's own tree, as
+    ``restore`` takes it.  With ``cfg`` the archive is a trainer's
+    ``{"params", "opt"}`` in the JAX package's layout (written by either
+    package), and ``template`` holds the port's layout of the parts to
+    restore: ``"params"`` (a state dict) and/or ``"opt"`` (``{"step",
+    "m", "v"}``)."""
+    if cfg is None:
+        host = restore(ckpt_dir, step, template)
+    else:
+        tree = _nest(load(ckpt_dir, step))
+        host = {}
+        for part in template:
+            if part not in tree:
+                raise KeyError(f"checkpoint missing leaf ['{part}']")
+        try:
+            if "params" in template:
+                host["params"] = _checked(
+                    model_params_from_reference(tree["params"], cfg,
+                                                device="cpu"),
+                    template["params"], "params")
+            if "opt" in template:
+                o = opt_state_from_reference(tree["opt"], cfg, device="cpu")
+                like = template["opt"]
+                host["opt"] = {
+                    "step": torch.as_tensor(int(o["step"]),
+                                            dtype=like["step"].dtype,
+                                            device=like["step"].device),
+                    "m": _checked(o["m"], like["m"], "opt.m"),
+                    "v": _checked(o["v"], like["v"], "opt.v")}
+        except IndexError as e:     # a stacked axis shorter than the model's
+            raise ValueError(f"checkpoint does not fit {cfg.name}: {e}"
+                             ) from e
+    return _distribute(host, shardings, mesh)

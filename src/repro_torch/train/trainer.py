@@ -21,7 +21,8 @@ The model owns its weights: ``fit`` turns grad on for every parameter
 microbatch and updates the parameters in place.  Microbatches
 accumulate as the reference's scan does: the losses and the grads are
 summed (the grads in the parameters' dtype) and divided by their
-number.  Elastic restart on another mesh waits for the mesh slice.
+number.  Elastic restart on another mesh:
+``repro_torch.train.checkpoint.restore_resharded``.
 """
 
 from __future__ import annotations

@@ -866,3 +866,114 @@ def test_retune_on_the_card_launches_one_encode(hopper):
         "bcsr_matmul": 1, "cyclic_encode": 0, "decode_matmul": 1}
     np.testing.assert_allclose(got.cpu().numpy(), (x @ head).cpu().numpy(),
                                rtol=2e-4, atol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# The mesh on the card: one rank (the card machine has one card)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def card_mesh(hopper):
+    """A one-rank NCCL process group on the card (an in-memory store, no
+    port) and its (1, 1) ('data', 'model') mesh."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dist.init_process_group(
+        "nccl", store=dist.HashStore(), rank=0, world_size=1,
+        device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        yield init_device_mesh("cuda", (1, 1),
+                               mesh_dim_names=("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_one_rank_nccl_mesh_places_without_copies(card_mesh):
+    """The group reduces over each axis, and a parameter placed by
+    ``param_shardings`` is a DTensor over the parameter itself."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.parallel import param_shardings
+
+    for axis in ("data", "model"):
+        t = torch.ones(4, device="cuda")
+        dist.all_reduce(t, group=card_mesh.get_group(axis))
+        assert torch.equal(t, torch.ones(4, device="cuda"))
+    cfg = get_smoke_config("kimi-k2-1t-a32b")
+    model = build_model(cfg, torch.bfloat16, device="cuda")
+    params = dict(model.named_parameters())
+    for name, pls in param_shardings(card_mesh, params, cfg).items():
+        d = DTensor.from_local(params[name].detach(), card_mesh, pls,
+                               run_check=False)
+        assert d.shape == params[name].shape
+        assert d.to_local().data_ptr() == params[name].data_ptr()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_block_ep_on_the_card_matches_moe_block(card_mesh, dtype):
+    """kimi's smoke MoE layer at a capacity where no slot drops: the EP
+    path on the one-rank card mesh bitwise ``moe_block`` (no collective
+    runs on one rank), with plain and with DTensor inputs, and the
+    served forward under ``expert_parallel`` bitwise the plain one."""
+    import dataclasses
+
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.models.moe import moe_block, moe_block_ep
+    from repro_torch.parallel import expert_parallel, param_shardings
+
+    cfg = get_smoke_config("kimi-k2-1t-a32b")
+    model = build_model(cfg, dtype, device="cuda")
+    model.init(torch.Generator("cuda").manual_seed(0))
+    moe = dataclasses.replace(cfg.moe, capacity_factor=cfg.moe.n_experts
+                              / cfg.moe.top_k)
+    p = model.layers[0].moe
+    x = torch.randn((4, 16, cfg.d_model), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(1)
+                    ).to(dtype)
+    with torch.inference_mode():
+        want, aux = moe_block(p, x, moe)
+        got, aux_ep = moe_block_ep(p, x, moe, card_mesh, ("data",), "model")
+        pls = param_shardings(card_mesh, dict(model.named_parameters()), cfg)
+        placed = {n: distribute_tensor(p[n].detach(), card_mesh,
+                                       pls[f"layers.0.moe.{n}"])
+                  for n in ("router", "w_gate", "w_up", "w_down")}
+        got_dt, _ = moe_block_ep(placed, x, moe, card_mesh, ("data",),
+                                 "model")
+        toks = torch.randint(0, cfg.vocab, (2, 8), device="cuda")
+        ref, _ = model(toks)
+        with expert_parallel(card_mesh, ("data",), "model"):
+            served, _ = model(toks)
+    assert torch.equal(got, want) and torch.equal(aux_ep, aux)
+    assert torch.equal(got_dt.full_tensor(), want)
+    assert torch.equal(served, ref)
+
+
+def test_restore_resharded_onto_the_card(card_mesh, tmp_path):
+    """A port trainer's smoke checkpoint restored onto the card mesh:
+    every leaf a DTensor on the card, bitwise the trained weights."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.parallel import param_shardings
+    from repro_torch.train import checkpoint
+
+    card = torch.device("cuda", torch.cuda.current_device())
+    tr, data = smoke_trainer(card, steps=2, ckpt_dir=str(tmp_path),
+                             ckpt_every=2)
+    params, _, _ = tr.fit(data, resume=False)
+    step = checkpoint.latest_step(tmp_path)
+    cfg = tr.model.cfg
+    got = checkpoint.restore_resharded(
+        tmp_path, step, {"params": params},
+        {"params": param_shardings(card_mesh, params, cfg)},
+        mesh=card_mesh, cfg=cfg)
+    for name, t in got["params"].items():
+        assert isinstance(t, DTensor) and t.device == card
+        assert torch.equal(t.full_tensor(), params[name].detach()), name

@@ -25,6 +25,11 @@ _FORBIDDEN = re.compile(
 # JAX package, which only the tests (JAX's side) call
 ML_DTYPES_ALLOWED = {"src/repro_torch/convert.py"}
 
+# a reference module whose port counterpart has another name: torch has
+# no XLA HLO to parse, so the port counts collectives as they are
+# dispatched
+COUNTERPARTS = {"analysis/hlo.py": "analysis/collectives.py"}
+
 
 def test_import_leaves_jax_and_repro_unloaded():
     code = (
@@ -47,6 +52,9 @@ def test_import_leaves_jax_and_repro_unloaded():
         "import repro_torch.data, repro_torch.optim, repro_torch.train, "
         "repro_torch.train.checkpoint, repro_torch.analysis.flops, "
         "repro_torch.launch.train\n"
+        "import repro_torch.parallel.ctx, repro_torch.parallel.sharding, "
+        "repro_torch.launch.mesh, repro_torch.launch.dryrun, "
+        "repro_torch.analysis.collectives, repro_torch.analysis.roofline\n"
         "repro_torch.compile_plan, repro_torch.CodedFleet, "
         "repro_torch.ClusterPlan, repro_torch.Autoscaler\n"
         "repro_torch.configs.get_config('phi3-mini-3.8b')\n"
@@ -64,11 +72,11 @@ def test_import_leaves_jax_and_repro_unloaded():
 def test_public_names_match_the_reference():
     """Every top-level name of the JAX package, and every name its
     ``repro.api``, ``repro.serve``, ``repro.models``, ``repro.data``,
-    ``repro.optim`` and ``repro.train`` export, resolves
-    in the port (the top level lazily); the port adds
-    ``plan_from_reference_arrays``.  Of ``repro.parallel`` the port has
-    the coded layers; its mesh and sharding rules wait for the mesh
-    slice."""
+    ``repro.optim``, ``repro.train`` and ``repro.parallel`` export,
+    resolves in the port (the top level lazily); the port adds
+    ``plan_from_reference_arrays``.  Every module of the JAX package has
+    its counterpart in the port, under the same path but for
+    ``COUNTERPARTS``."""
     import repro
     import repro.api
     import repro.models
@@ -98,7 +106,8 @@ def test_public_names_match_the_reference():
                       (repro.models, repro_torch.models),
                       (repro.data, repro_torch.data),
                       (repro.optim, repro_torch.optim),
-                      (repro.train, repro_torch.train)):
+                      (repro.train, repro_torch.train),
+                      (repro.parallel, repro_torch.parallel)):
         names = {n for n in vars(ref) if not n.startswith("_")
                  and not isinstance(getattr(ref, n), type(repro))}
         missing = sorted(n for n in names if not hasattr(port, n))
@@ -112,8 +121,15 @@ def test_public_names_match_the_reference():
         assert hasattr(repro.parallel, name)
         assert getattr(repro_torch.parallel, name).__name__ == name
     assert repro_torch.models.WhisperLM.__name__ == "WhisperLM"
-    assert repro_torch.models.moe.CodedMoE.__name__ == \
-        repro.models.moe.CodedMoE.__name__
+    for name in ("CodedMoE", "moe_block_ep", "moe_apply"):
+        assert getattr(repro_torch.models.moe, name).__name__ == \
+            getattr(repro.models.moe, name).__name__
+    ref_root = ROOT / "src" / "repro"
+    missing = sorted(
+        rel for rel in (p.relative_to(ref_root).as_posix()
+                        for p in ref_root.rglob("*.py"))
+        if not (PORT / COUNTERPARTS.get(rel, rel)).is_file())
+    assert not missing, missing
 
 
 SCANNED = sorted([p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")]
