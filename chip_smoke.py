@@ -182,14 +182,26 @@ Phases, one JSON line each:
      eps), and the three kernels at kimi's head; ``mesh-restore``, a
      smoke checkpoint written by the port's trainer on the card restored
      by ``restore_resharded`` onto the card mesh, bitwise;
-     ``mesh-dryrun``, ``python -m repro_torch.launch.dryrun`` on kimi's
-     ``train_4k`` through ``moe_ep`` (one microbatch) and whisper-tiny's
-     ``decode_32k`` on 256-rank fake process groups, and the roofline
-     over both (host only, started with phase 11).
+     ``mesh-dryrun``, ``python -m repro_torch.launch.dryrun`` on
+     256-rank fake process groups at full width, one process per cell,
+     all at once: kimi's ``train_4k`` through ``moe_ep`` (one
+     microbatch), whisper-tiny's ``decode_32k``, and one cell per fault
+     the dry run's repair fixed (``DRYRUN_CELLS``), each ``ok``; the
+     roofline over them (host only, started with phase 11);
+ 13. examples -- the ten port examples (``examples/torch/``) on the card
+     with their defaults, each a subprocess with a temporary working
+     directory and its own time limit, four at a time: its exit code,
+     wall time and last line (``train_lm`` with its checkpoints in that
+     directory).  ``quickstart``, ``edge_offload`` and ``serve_coded``
+     also run in this process (``runpy``), with the launches they must
+     make: quickstart 1 ``cyclic_encode`` of A at compile and, per
+     matmat, 1 of B + 1 ``bcsr_matmul`` + 1 ``decode_matmul``;
+     edge_offload 1 encode and 1 + 1 per matvec; serve_coded 1 encode at
+     the engine's build, none while serving, 1 + 1 per coded call.
 
 Launch counters are set to 0 just before each main path (mv, mm,
-serve, cluster, each edge, front and models sub-phase, train-full and
-mesh-kimi)
+serve, cluster, each edge, front and models sub-phase, train-full,
+mesh-kimi and each in-process example)
 and read
 just after; a child
 process's launches come from its own report: every encode must have gone through
@@ -3760,12 +3772,27 @@ MESH_LAYERS = 1
 # columns for them): all 384 in f32 would be 67.6 GB beside the model
 MESH_F32_EXPERTS = 48
 MESH_RESTORE_ARCH = "kimi-k2-1t-a32b"
-# the dry-run cells (host only): kimi's train cell through the EP path,
-# cut to one microbatch (the reference's 4 would take four times its
-# trace time), and whisper-tiny's decode cell
+# the dry-run cells (host only, one process each, all at once): kimi's
+# train cell through the EP path and whisper-tiny's decode cell; then,
+# for each fault the dry run's repair fixed, the cell that traces
+# fastest: a dense train_4k (the vocab-parallel embedding's gradient),
+# whisper-tiny's prefill_32k (the cache written out of place; the other
+# archs' prefills walk 64 x 64 attention chunks per layer), granite's
+# decode_32k (the MoE's routing, default path), gemma3's long_500k (a
+# residual added to the embedding), phi-3-vision's train_4k (the
+# image prefix beside the embedding) and mamba2's prefill_32k (the SSD
+# scan and causal conv on each rank's rows: torch 2.11 has no rule for
+# their padding).  Train cells are cut to one microbatch (the
+# reference's 4 would take four times the trace time).
 DRYRUN_CELLS = (
     ("kimi-k2-1t-a32b", "train_4k", "moe_ep", 1),
     ("whisper-tiny", "decode_32k", "", 4),
+    ("phi3-mini-3.8b", "train_4k", "", 1),
+    ("whisper-tiny", "prefill_32k", "", 4),
+    ("granite-moe-1b-a400m", "decode_32k", "", 4),
+    ("gemma3-12b", "long_500k", "", 4),
+    ("phi-3-vision-4.2b", "train_4k", "", 1),
+    ("mamba2-1.3b", "prefill_32k", "", 4),
 )
 DRYRUN_TIMEOUT_S = 900
 
@@ -3790,27 +3817,31 @@ def card_mesh(dev):
 
 
 def start_dryrun(root: Path) -> subprocess.Popen:
-    """The dry-run cells and the roofline over them, in one host-only
-    subprocess (its stdout: the dry run's and the roofline's lines)."""
+    """The dry-run cells, one process each and all at once, then the
+    roofline over them, in one host-only process group (its stdout: the
+    dry run's and the roofline's lines; a failed cell fails it)."""
     out = root / "build" / "dryrun"
-    steps = []
+    cells = []
     for arch, shape, opts, micro in DRYRUN_CELLS:
-        steps.append(
+        cells.append(
             f"{sys.executable} -m repro_torch.launch.dryrun --arch {arch} "
             f"--shape {shape} --microbatches {micro} --out {out}"
             + (f" --opts {opts}" if opts else ""))
-    steps.append(f"{sys.executable} -m repro_torch.analysis.roofline "
-                 f"--artifacts {out} --out {root / 'build' / 'roofline.json'}")
+    roofline = (f"{sys.executable} -m repro_torch.analysis.roofline "
+                f"--artifacts {out} --out {root / 'build' / 'roofline.json'}")
     env = dict(os.environ, PYTHONPATH=str(root / "src"))
     (root / "build").mkdir(exist_ok=True)
+    script = (f"rm -rf {out}; pids=''; "
+              + "".join(f"(time {cell}) & pids=\"$pids $!\"; "
+                        for cell in cells)
+              + "rc=0; for p in $pids; do wait $p || rc=1; done; "
+              f"[ $rc = 0 ] && (time {roofline})")
     # files, not pipes: nothing reads the output until phase 12
     with open(root / "build" / "dryrun.out", "w") as so, \
             open(root / "build" / "dryrun.err", "w") as se:
-        return subprocess.Popen(
-            ["bash", "-c", f"rm -rf {out} && " + " && ".join(
-                f"(time {step})" for step in steps)],
-            cwd=root, env=env, stdout=so, stderr=se,
-            start_new_session=True)
+        return subprocess.Popen(["bash", "-c", script], cwd=root, env=env,
+                                stdout=so, stderr=se,
+                                start_new_session=True)
 
 
 def stop_dryrun(proc: subprocess.Popen) -> None:
@@ -4089,7 +4120,7 @@ def mesh_restore(seed: int, dev, mesh) -> dict:
 
 
 def mesh_dryrun(proc: subprocess.Popen) -> dict:
-    """Wait for the dry-run subprocess and hold its artifacts: both cells
+    """Wait for the dry-run subprocess and hold its artifacts: every cell
     ``ok``, the roofline's three terms for each."""
     t_sub = time.perf_counter()
     try:
@@ -4128,7 +4159,7 @@ def mesh_dryrun(proc: subprocess.Popen) -> dict:
             "dominant": r["dominant"], "projected_mfu": r["projected_mfu"]})
     times = [line for line in err.splitlines() if line.startswith("real")]
     row = {"cells": cells, "process_s": times,
-           "reduced": ["kimi train_4k: --microbatches 4 -> 1"]}
+           "reduced": ["train_4k cells: --microbatches 4 -> 1"]}
     emit("mesh", sub="mesh-dryrun", **row,
          wait_s=time.perf_counter() - t_sub)
     return row
@@ -4149,6 +4180,98 @@ def phase_mesh(seed: int, dev, gen, dryrun: subprocess.Popen,
     mesh_dryrun(dryrun)
     emit("mesh", sub="total", launches=counts)
     return counts, rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the examples
+# ---------------------------------------------------------------------------
+
+# what an example's command line adds to its defaults (a CPU rehearsal
+# adds "--device", "cpu")
+EXAMPLE_ARGS: list = []
+EXAMPLE_TIMEOUT_S = 300      # each run's own (8-20 s on the card)
+EXAMPLE_LANES = 4
+# the launches of one run in this process (see phase 13 above)
+EXAMPLE_LAUNCHES = {
+    "quickstart": {"bcsr_matmul": 2, "cyclic_encode": 3,
+                   "decode_matmul": 2},
+    "edge_offload": {"bcsr_matmul": 2, "cyclic_encode": 1,
+                     "decode_matmul": 2},
+    "serve_coded": {"bcsr_matmul": 5, "cyclic_encode": 1,
+                    "decode_matmul": 5},
+}
+
+
+def example_path(root: Path, name: str) -> Path:
+    return root / "examples" / "torch" / f"{name}.py"
+
+
+def run_example(root: Path, name: str, cwd: Path) -> dict:
+    """One example as a subprocess from ``cwd``: its exit code, wall time
+    and last line (a run past its time limit raises)."""
+    cwd.mkdir(parents=True)
+    cmd = [sys.executable, str(example_path(root, name)), *EXAMPLE_ARGS]
+    if name == "train_lm":
+        cmd += ["--ckpt-dir", str(cwd / "ckpt")]
+    t0 = time.perf_counter()
+    p = subprocess.run(cmd, cwd=cwd, capture_output=True, text=True,
+                       timeout=EXAMPLE_TIMEOUT_S)
+    lines = p.stdout.strip().splitlines()
+    return {"rc": p.returncode, "wall_s": time.perf_counter() - t0,
+            "last": lines[-1] if lines else "",
+            "stderr": p.stderr[-3000:] if p.returncode else ""}
+
+
+def examples_in_process(root: Path) -> dict:
+    """quickstart, edge_offload and serve_coded run in this process, each
+    between a reset and a read of the launch counters, which must be
+    ``EXAMPLE_LAUNCHES``' -> their sum."""
+    import runpy
+
+    total = dict.fromkeys(SOURCES, 0)
+    for name, want in EXAMPLE_LAUNCHES.items():
+        path = example_path(root, name)
+        argv, sys.argv = sys.argv, [str(path), *EXAMPLE_ARGS]
+        out = io.StringIO()
+        try:
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                runpy.run_path(str(path), run_name="__main__")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launch_counts()
+        finally:
+            sys.argv = argv
+        expect_counts(f"examples {name} (in process)", counts, **want)
+        emit("examples", sub=f"{name}-in-process", wall_s=wall,
+             launches=counts, last=out.getvalue().strip().splitlines()[-1])
+        total = add_counts(total, counts)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
+
+
+def phase_examples(root: Path) -> dict:
+    """Phase 13: every example as a subprocess (``EXAMPLE_LANES`` at a
+    time) while three of them run in this process -> the in-process
+    launches.  An example that fails fails the phase."""
+    t0 = time.perf_counter()
+    names = sorted(p.stem for p in (root / "examples" / "torch").glob("*.py"))
+    with tempfile.TemporaryDirectory(prefix="examples-") as tmp, \
+            concurrent.futures.ThreadPoolExecutor(EXAMPLE_LANES) as pool:
+        futs = {name: pool.submit(run_example, root, name, Path(tmp) / name)
+                for name in names}
+        counts = examples_in_process(root)
+        runs = {name: f.result() for name, f in futs.items()}
+    for name, r in runs.items():
+        emit("examples", sub=name, **r)
+        if r["rc"] != 0:
+            raise AssertionError(f"examples {name}: rc {r['rc']}: "
+                                 f"{r['stderr']}")
+    emit("examples", sub="total", wall_s=time.perf_counter() - t0,
+         launches=counts)
+    return counts
 
 
 def main(argv=None) -> int:
@@ -4222,6 +4345,9 @@ def main(argv=None) -> int:
         rows += mesh_rows
     finally:
         stop_dryrun(dryrun)
+    gc.collect()
+    torch.cuda.empty_cache()
+    examples_counts = phase_examples(Path(__file__).resolve().parent)
 
     if args.parent is not None:
         root = Path(__file__).resolve().parent
@@ -4245,7 +4371,7 @@ def main(argv=None) -> int:
                          + serve_counts[name] + cluster_counts[name]
                          + edge_counts[name] + front_counts[name]
                          + models_counts[name] + train_counts[name]
-                         + mesh_counts[name]),
+                         + mesh_counts[name] + examples_counts[name]),
             "max_abs_err": main_row["max_abs_err"], "ms": main_row["ms"],
             "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],

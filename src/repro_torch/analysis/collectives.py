@@ -18,6 +18,7 @@ stays 0.
 
 from __future__ import annotations
 
+import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
@@ -58,6 +59,14 @@ class CollectiveCounter(TorchDispatchMode):
         if any(issubclass(t, DTensor) for t in types):
             # let DTensor lower the op; its local ops come back here
             return NotImplemented
+        if func is torch.ops.aten.equal.default \
+                and any(a.is_meta for a in args):
+            # meta tensors hold no values and ``equal`` has no meta
+            # kernel: two are taken as equal when their shapes and dtypes
+            # are (DTensor's embedding mask buffer asks this of the masks
+            # of two lookups sharing one placement)
+            a, b = args
+            return a.shape == b.shape and a.dtype == b.dtype
         out = func(*args, **(kwargs or {}))
         namespace = func.namespace
         name = func._schema.name.split("::")[-1].rstrip("_")

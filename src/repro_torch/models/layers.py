@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import AttnConfig
-from ..parallel.ctx import per_head, reshape, shard
+from ..parallel.ctx import _is_dtensor, per_head, psum, reshape, shard
 
 # ---------------------------------------------------------------------------
 # Norms, activations, embeddings
@@ -53,6 +53,64 @@ def gelu_mlp(x: torch.Tensor, w_up, w_down) -> torch.Tensor:
     # jax.nn.gelu defaults to the tanh approximation
     return torch.einsum("...f,fd->...d", F.gelu(
         torch.einsum("...d,df->...f", x, w_up), approximate="tanh"), w_down)
+
+
+def embedding(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]`` (``F.embedding``).
+
+    On a mesh whose table is vocab-parallel (its rows sharded), the
+    lookup runs on each rank's local shards (``local_map``): a rank
+    looks up the tokens its rows hold, writes zeros for the rest, and
+    one sum over the table's shard axes gives every rank the rows
+    (Megatron's vocab-parallel embedding).  DTensor's own lowering
+    leaves a masked partial sum instead, which it can neither add to
+    another partial nor take a partial gradient back into.  The output
+    keeps the tokens' batch shard; the table's gradient is its own
+    shard, partial over the batch's axes."""
+    if not _is_dtensor(table):
+        return F.embedding(tokens, table)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard  # noqa: PLC0415
+    from torch.distributed.tensor.experimental import local_map  # noqa: PLC0415
+
+    vocab_dims = [i for i, pl in enumerate(table.placements)
+                  if isinstance(pl, Shard) and pl.dim == 0]
+    if not vocab_dims:
+        return F.embedding(tokens, table)
+
+    mesh = table.device_mesh
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    tok_in, w_in, w_grad = [], [], []
+    for i, (tp, wp) in enumerate(zip(tokens.placements, table.placements)):
+        batch = isinstance(tp, Shard) and tp.dim == 0 and i not in vocab_dims
+        tok_in.append(Shard(0) if batch else Replicate())
+        w_in.append(Shard(0) if i in vocab_dims else Replicate())
+        w_grad.append(Shard(0) if i in vocab_dims
+                      else Partial() if batch else Replicate())
+    rows = table.shape[0]
+    coord = mesh.get_coordinate()
+    offset = 0
+    for i in vocab_dims:
+        rows //= mesh.size(i)
+        offset = offset * mesh.size(i) + coord[i]
+    offset *= rows
+    groups = [mesh.get_group(i) for i in vocab_dims]
+
+    def lookup(tok, w):
+        local = tok - offset
+        inside = (local >= 0) & (local < rows)
+        y = F.embedding(torch.where(inside, local, 0), w)
+        y = torch.where(inside[..., None], y, y.new_zeros(()))
+        for group in groups:
+            y = psum(y, group)
+        return y
+
+    run = local_map(lookup, out_placements=(tuple(tok_in),),
+                    in_placements=(tuple(tok_in), tuple(w_in)),
+                    in_grad_placements=(tuple(tok_in), tuple(w_grad)),
+                    device_mesh=mesh, redistribute_inputs=True)
+    return run(tokens, table)
 
 
 def sinusoidal_positions(n: int, d: int) -> np.ndarray:
@@ -270,6 +328,30 @@ def init_kv_cache(batch: int, max_len: int, a: AttnConfig, window: int | None,
     shape = (batch, length, a.n_kv_heads, a.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def prefix_cache(kv: torch.Tensor, length: int, dtype) -> torch.Tensor:
+    """A cache of ``length`` slots holding the first keys or values of
+    ``kv`` (B, S, KV, D), zeros after, built out of place: on a mesh it
+    is then a DTensor laid out as ``kv`` (DTensor refuses a write into a
+    plain buffer)."""
+    upto = min(kv.shape[1], length)
+    out = kv[:, :upto].to(dtype).contiguous()
+    if upto == length:
+        return out
+    return torch.cat([out, out.new_zeros(
+        (out.shape[0], length - upto) + tuple(out.shape[2:]))], dim=1)
+
+
+def ring_cache(kv: torch.Tensor, length: int, roll: int, dtype
+               ) -> torch.Tensor:
+    """The last ``length`` keys or values of ``kv`` (B, S, KV, D) laid
+    out as a ring buffer whose next slot is ``roll``: ``torch.roll`` of
+    them by ``roll`` along the sequence, as two slices (DTensor in torch
+    2.11 has no rule for ``roll``)."""
+    tail = kv[:, -length:]
+    return torch.cat([tail[:, length - roll:], tail[:, :length - roll]],
+                     dim=1).to(dtype)
 
 
 def attention_decode(p: dict, x: torch.Tensor, cache: dict, step: int,

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import SSMConfig
+from ..parallel.ctx import rank_local
 from .layers import normal_, rms_norm
 
 
@@ -69,6 +70,7 @@ def _split_proj(proj, d_in, n, n_h):
     return z, xbc, dt
 
 
+@rank_local(batched=(0,))
 def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor
                  ) -> torch.Tensor:
     """Depthwise causal conv, xbc (B, S, C), w (K, C)."""
@@ -78,6 +80,7 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor
     return F.silu(out + b)
 
 
+@rank_local(batched=(0, 1, 2, 3, 5), outs=2)
 def _ssd_scan(xdt, dA, B, C, chunk: int, state0=None):
     """Chunked SSD.  xdt (b,S,h,p) [= x*dt], dA (b,S,h), B/C (b,S,n).
 

@@ -41,6 +41,7 @@ from ..parallel.ctx import (
     ep_context,
     pmean,
     psum,
+    rank_local,
     shard,
     shard_map_compat,
 )
@@ -176,10 +177,17 @@ def moe_block(p: dict, x: torch.Tensor, moe: MoEConfig
     cap = _capacity(t, moe)
     tokens = x.reshape(t, d)
 
-    aux, fp, tok_id, keep, dest = _route_tokens(p["router"], tokens, moe, cap)
+    # on a mesh the routing, the slot scatter and the combine run on
+    # every rank's gathered tokens (ctx.rank_local): the same global
+    # routing and capacity as off a mesh; the experts are DTensor ops
+    aux, fp, tok_id, keep, dest = rank_local(outs=5)(
+        lambda router, toks: _route_tokens(router, toks, moe, cap))(
+            p["router"], tokens)
 
     # --- dispatch -> expert FFN -> combine ----------------------------------
-    xe = shard("moe_xe", _dispatch(tokens, tok_id, dest, e, cap))
+    xe = shard("moe_xe", rank_local()(
+        lambda toks, ids, to: _dispatch(toks, ids, to, e, cap))(
+            tokens, tok_id, dest))
     # FSDP cut point: regather the expert weights over the 'data' axis
     # once per layer instead of contracting over the sharded d_model dim
     w_gate = shard("moe_w", p["w_gate"])
@@ -188,7 +196,8 @@ def moe_block(p: dict, x: torch.Tensor, moe: MoEConfig
     g = torch.einsum("ecd,edh->ech", xe, w_gate)
     u = torch.einsum("ecd,edh->ech", xe, w_up)
     ye = torch.einsum("ech,ehd->ecd", F.silu(g) * u, w_down)
-    out = _combine_slots(ye, fp, tok_id, keep, dest, t, x.dtype)
+    out = rank_local()(lambda *a: _combine_slots(*a, t, x.dtype))(
+        ye, fp, tok_id, keep, dest)
 
     if moe.n_shared_experts:
         out = out + _shared_expert(p["shared"], tokens)

@@ -44,7 +44,6 @@ from __future__ import annotations
 import functools
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -55,12 +54,15 @@ from .layers import (
     _project_qkv,
     attention_decode,
     attn_param_shapes,
+    embedding,
     init_attn_params,
     init_kv_cache,
     init_mlp_params,
     mlp_block,
     mlp_param_shapes,
     normal_,
+    prefix_cache,
+    ring_cache,
     rms_norm,
     self_attention,
 )
@@ -258,9 +260,7 @@ class TransformerLM(nn.Module):
 
     def _embed(self, tokens, image_embeds=None) -> torch.Tensor:
         tokens = as_tensor(tokens, self.device).long()
-        # a gather whose backward DTensor shards on a mesh (the vocab-
-        # parallel embedding); the values are self.embed[tokens]'s
-        x = F.embedding(tokens, self.embed).to(self.dtype)
+        x = embedding(tokens, self.embed).to(self.dtype)
         if self.cfg.vision_tokens and image_embeds is not None:
             img = as_tensor(image_embeds, self.device).to(self.dtype)
             x = torch.cat([img, x], dim=1)
@@ -371,17 +371,11 @@ class TransformerLM(nn.Module):
             window = blk.window
             length = min(window, max_len) if window else max_len
             if window and s > length:
-                roll = s % length
-                ck = torch.roll(kk[:, -length:], roll, dims=1).to(self.dtype)
-                cv = torch.roll(vv[:, -length:], roll, dims=1).to(self.dtype)
+                ck = ring_cache(kk, length, s % length, self.dtype)
+                cv = ring_cache(vv, length, s % length, self.dtype)
             else:
-                ck = torch.zeros((b, length, cfg.attn.n_kv_heads,
-                                  cfg.attn.head_dim), dtype=self.dtype,
-                                 device=x.device)
-                cv = torch.zeros_like(ck)
-                upto = min(s, length)
-                ck[:, :upto] = kk[:, :upto]
-                cv[:, :upto] = vv[:, :upto]
+                ck = prefix_cache(kk, length, self.dtype)
+                cv = prefix_cache(vv, length, self.dtype)
             caches.append({"k": shard("kv", ck), "v": shard("kv", cv)})
             x = shard("resid", x)
         logits = self._logits(x[:, -1:, :])
@@ -391,10 +385,7 @@ class TransformerLM(nn.Module):
         """One-token step.  tokens (B, 1) -> (logits (B, V), cache); the
         cache is advanced in place and returned."""
         cfg = self.cfg
-        # a cut point the reference's decode step does without: on a mesh
-        # the vocab-parallel embedding's output is a masked partial sum,
-        # which DTensor cannot add to the attention's partial sum
-        x = shard("resid", self._embed(tokens))
+        x = self._embed(tokens)
         step = cache["step"]
         for blk, c in zip(self._blocks(), cache["layers"]):
             if blk.kind == "M":

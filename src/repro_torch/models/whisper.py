@@ -20,7 +20,6 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from .._device import as_tensor, resolve_device
@@ -32,12 +31,14 @@ from .layers import (
     attention_decode,
     attention_plain,
     attn_param_shapes,
+    embedding,
     init_attn_params,
     init_kv_cache,
     init_mlp_params,
     mlp_block,
     mlp_param_shapes,
     normal_,
+    prefix_cache,
     rms_norm,
 )
 from .transformer import _params, _vector, sharded_cross_entropy
@@ -140,10 +141,7 @@ class WhisperLM(nn.Module):
 
     def _embed(self, tokens) -> torch.Tensor:
         tokens = as_tensor(tokens, self.device).long()
-        # a cut point the reference does without: on a mesh the vocab-
-        # parallel embedding's output is a masked partial sum, which
-        # DTensor cannot add to the attention's partial sum
-        return shard("resid", F.embedding(tokens, self.embed).to(self.dtype))
+        return embedding(tokens, self.embed).to(self.dtype)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
@@ -212,12 +210,9 @@ class WhisperLM(nn.Module):
                                  lyr.attn["wo"])
             xk, xv = _encode_kv(lyr.xattn, enc_out, cfg.attn)
             x = self._cross_and_ffn(lyr, x, (xk, xv))
-            c = init_kv_cache(b, max_len, cfg.attn, None, self.dtype,
-                              x.device)
-            c["k"][:, :s] = kk
-            c["v"][:, :s] = vv
-            c["xk"], c["xv"] = xk.to(self.dtype), xv.to(self.dtype)
-            caches.append(c)
+            caches.append({"k": prefix_cache(kk, max_len, self.dtype),
+                           "v": prefix_cache(vv, max_len, self.dtype),
+                           "xk": xk.to(self.dtype), "xv": xv.to(self.dtype)})
         logits = self._logits(x[:, -1:])
         return logits[:, 0], {"layers": caches, "step": s}
 

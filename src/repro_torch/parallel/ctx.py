@@ -158,7 +158,30 @@ def reshape(t: torch.Tensor, *shape: int) -> torch.Tensor:
             placements[i] = Replicate()
     if placements != list(t.placements):
         t = t.redistribute(mesh, placements)
-    return t.reshape(*shape)
+    out = t.reshape(*shape)
+    return _GradLaidOut.apply(out) if out.requires_grad else out
+
+
+class _GradLaidOut(torch.autograd.Function):
+    """The identity, whose gradient is laid out as its forward value:
+    the backward of a head merge splits the gradient again, and the
+    gradient a later op hands back may shard what the split cuts."""
+
+    @staticmethod
+    def forward(ctx, x):
+        from torch.distributed.tensor import Replicate  # noqa: PLC0415
+
+        # the gradient of a partial value is whole on every rank
+        ctx.mesh = x.device_mesh
+        ctx.placements = tuple(Replicate() if pl.is_partial() else pl
+                               for pl in x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) != ctx.placements:
+            g = g.redistribute(ctx.mesh, ctx.placements)
+        return g
 
 
 def _head_aligned(q, k, v):
@@ -191,6 +214,24 @@ def _head_aligned(q, k, v):
     return to(q, qp), to(k, kp), to(v, kp)
 
 
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose gradient is made contiguous: a local shard's
+    gradient that ``local_map`` hands back as a DTensor must be laid out
+    as DTensor assumes, or a later view of it fails."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _contiguous_grad(x: torch.Tensor) -> torch.Tensor:
+    return _ContiguousGrad.apply(x) if x.requires_grad else x
+
+
 def per_head(fn):
     """Attention ``fn(q, k, v, *args)`` is independent per batch row and
     per GQA group: on DTensors it runs on each rank's local shards
@@ -208,7 +249,9 @@ def per_head(fn):
         from torch.distributed.tensor.experimental import local_map  # noqa: PLC0415
 
         q, k, v = _head_aligned(q, k, v)
-        body = local_map(lambda q, k, v: fn(q, k, v, *args, **kw),
+        body = local_map(lambda q, k, v: fn(_contiguous_grad(q),
+                                            _contiguous_grad(k),
+                                            _contiguous_grad(v), *args, **kw),
                          out_placements=(tuple(q.placements),),
                          in_placements=(tuple(q.placements),
                                         tuple(k.placements),
@@ -217,6 +260,58 @@ def per_head(fn):
         return body(q, k, v)
 
     return run
+
+
+def rank_local(batched: tuple = (), outs: int = 1):
+    """Decorator for ``fn(*args)`` -> ``outs`` tensors, for steps that
+    DTensor cannot lower op by op: the MoE's slot scatters into buffers
+    of their own, and the sequence steps (the SSD scan, the causal conv)
+    whose padding torch 2.11 has no rule for.  On DTensors ``fn`` runs on
+    each rank's local copies (``local_map``): the arguments at
+    ``batched`` carry the batch in dim 0 and keep the first one's batch
+    shards, every other tensor is gathered whole, and each output is laid
+    out as the batch (whole when nothing is batched).  A whole tensor's
+    gradient is then partial over the batch's axes.  A plain argument
+    beside a DTensor is taken as the global value; plain tensors alone
+    call ``fn`` as is."""
+    import functools  # noqa: PLC0415
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(*args):
+            ref = next((a for a in args if _is_dtensor(a)), None)
+            if ref is None:
+                return fn(*args)
+            from torch.distributed.tensor import DTensor, Partial, Replicate, Shard  # noqa: PLC0415
+            from torch.distributed.tensor.experimental import local_map  # noqa: PLC0415
+
+            mesh = ref.device_mesh
+            whole = (Replicate(),) * mesh.ndim
+            rows = whole if not batched else tuple(
+                Shard(0) if isinstance(pl, Shard) and pl.dim == 0
+                else Replicate() for pl in args[batched[0]].placements)
+            part = tuple(Partial() if isinstance(pl, Shard) else pl
+                         for pl in rows)
+            ins, grads, call = [], [], []
+            for i, a in enumerate(args):
+                if not isinstance(a, torch.Tensor):
+                    ins.append(None)
+                    grads.append(None)
+                    call.append(a)
+                    continue
+                ins.append(rows if i in batched else whole)
+                grads.append(rows if i in batched else part)
+                call.append(a if _is_dtensor(a) else DTensor.from_local(
+                    a, mesh, whole, run_check=False))
+            body = local_map(fn, out_placements=(rows,) * outs,
+                             in_placements=tuple(ins),
+                             in_grad_placements=tuple(grads),
+                             device_mesh=mesh, redistribute_inputs=True)
+            return body(*call)
+
+        return run
+
+    return wrap
 
 
 def _identity(name: str, x):

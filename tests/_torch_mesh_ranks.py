@@ -14,6 +14,11 @@ their inputs from DIR and write ``DIR/CASE_RANK.pt``.  Cases:
            trainer checkpoint by ``param_shardings`` / ``zero1_shardings``
   specs    one process, ``fake`` process groups of 256 and 8 ranks: every
            arch's parameter, ZeRO-1, batch and cache placements as specs
+  models   4 gloo ranks, a (2 data, 2 model) mesh: the smoke configs of
+           granite-moe (default MoE path), phi3-mini, gemma3 and mamba2
+           in f32, placed by the sharding rules, against the same
+           weights off the mesh: a prefill and 3 decode steps, and one
+           ``train_loss`` backward's gradients
 """
 
 from __future__ import annotations
@@ -155,6 +160,71 @@ def case_restore(rank: int, d: Path) -> dict:
     return out
 
 
+MODEL_ARCHS = ("granite-moe-1b-a400m", "phi3-mini-3.8b", "gemma3-12b",
+               "mamba2-1.3b")
+
+
+def case_models(rank: int, d: Path) -> dict:
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.parallel.ctx import activation_sharding
+    from repro_torch.parallel.sharding import (
+        batch_shardings,
+        make_activation_sharder,
+        param_shardings,
+    )
+
+    mesh = _mesh((2, 2), ("data", "model"))
+    z = np.load(d / "models_inputs.npz")
+    out = {}
+    for i, arch in enumerate(MODEL_ARCHS):
+        cfg = get_smoke_config(arch)
+        plain = build_model(cfg, torch.float32, device="cpu")
+        sd = plain.init(torch.Generator().manual_seed(i))
+        placed = build_model(cfg, torch.float32, device="cpu")
+        shardings = param_shardings(mesh, sd, cfg)
+        placed.load_state_dict(
+            {k: distribute_tensor(v.clone(), mesh, shardings[k])
+             for k, v in sd.items()}, assign=True)
+        batch = {k: torch.tensor(z[k]) for k in ("prompt", "steps", "tokens",
+                                                 "labels")}
+        pls = batch_shardings(mesh, batch, batch["prompt"].shape[0])
+        dist_batch = {k: distribute_tensor(v, mesh, pls[k])
+                      for k, v in batch.items()}
+
+        def serve(model, b):
+            with torch.no_grad():
+                logits, cache = model.prefill(b["prompt"], max_len=16)
+                got = [logits]
+                for j in range(b["steps"].shape[1]):
+                    logits, cache = model.decode_step(
+                        cache, b["steps"][:, j:j + 1])
+                    got.append(logits)
+            return got
+
+        def grads(model, b):
+            model.requires_grad_(True)
+            model.train_loss({"tokens": b["tokens"],
+                              "labels": b["labels"]}).backward()
+            return {k: p.grad for k, p in model.named_parameters()}
+
+        want = serve(plain, batch)
+        want_grads = grads(plain, batch)
+        with implicit_replication(), \
+                activation_sharding(make_activation_sharder(mesh)):
+            got = serve(placed, dist_batch)
+            got_grads = grads(placed, dist_batch)
+        out[arch] = {"want": want, "got": [g.full_tensor() for g in got],
+                     "want_grads": want_grads,
+                     "got_grads": {k: g.full_tensor()
+                                   for k, g in got_grads.items()},
+                     "embed": str(placed.embed.placements)}
+    return out
+
+
 def case_specs(d: Path) -> dict:
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
@@ -219,7 +289,7 @@ def main() -> None:
                             timeout=TIMEOUT)
     try:
         out = {"ep": case_ep, "sharded": case_sharded,
-               "restore": case_restore}[case](rank, d)
+               "restore": case_restore, "models": case_models}[case](rank, d)
         torch.save(out, d / f"{case}_{rank}.pt")
     finally:
         dist.destroy_process_group()

@@ -132,8 +132,19 @@ def test_public_names_match_the_reference():
     assert not missing, missing
 
 
+EXAMPLES = ROOT / "examples"
 SCANNED = sorted([p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")]
+                 + [p.relative_to(ROOT).as_posix()
+                    for p in (EXAMPLES / "torch").glob("*.py")]
                  + ["chip_smoke.py"])
+
+
+def test_every_example_has_a_port():
+    """Each of the reference's examples has its counterpart, of the same
+    name, in ``examples/torch/``."""
+    names = sorted(p.name for p in EXAMPLES.glob("*.py"))
+    assert len(names) == 10
+    assert sorted(p.name for p in (EXAMPLES / "torch").glob("*.py")) == names
 
 
 def test_scan_covers_every_subpackage():

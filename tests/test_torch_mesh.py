@@ -19,7 +19,11 @@ results.  Inputs are made from numpy seeds and handed to both sides.
   * ``CodedLinear.apply_sharded`` on 6 gloo ranks against ``x @ w`` and
     the JAX ``apply_sharded`` on 6 devices;
   * ``restore_resharded`` of a JAX trainer checkpoint onto a (2, 2) gloo
-    mesh, each rank's shard bitwise its slice of the archive.
+    mesh, each rank's shard bitwise its slice of the archive;
+  * the smoke configs of granite-moe (its default MoE path), phi3-mini,
+    gemma3 and mamba2 placed on a (2 data, 2 model) gloo mesh by the
+    sharding rules: a prefill, 3 decode steps and one ``train_loss``
+    backward's gradients against the same weights off the mesh.
 """
 
 import json
@@ -196,6 +200,14 @@ def _ep_inputs(d: Path) -> None:
     x = rng.standard_normal((3, 16)).astype(np.float32)
     np.savez(d / "sharded_inputs.npz", w=w, x=x)
     (d / "restore_arch.txt").write_text(RESTORE_ARCH)
+    # the models case: a 12-token prompt (past gemma3's smoke window of
+    # 8), 3 decode tokens, and a training batch; batch 4 over 'data'
+    rng = np.random.default_rng(5)
+    np.savez(d / "models_inputs.npz",
+             prompt=rng.integers(0, 256, (4, 12)),
+             steps=rng.integers(0, 256, (4, 3)),
+             tokens=rng.integers(0, 256, (4, 16)),
+             labels=rng.integers(0, 256, (4, 16)))
 
 
 @pytest.fixture(scope="module")
@@ -208,11 +220,13 @@ def mesh_runs(tmp_path_factory):
                               str(d)], cwd=ROOT, env=ENV,
                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                              text=True)
+    models = _group("models", 4, d)
     _wait(_group("ep", 8, d), "moe_block_ep on 8 gloo ranks")
     _wait(_group("sharded", 6, d), "apply_sharded on 6 gloo ranks")
     _wait([jax_ep], "the JAX side (EP, apply_sharded, trainer checkpoint)")
     _wait(_group("restore", 4, d), "restore_resharded on 4 gloo ranks")
     _wait([jax_specs, specs], "the sharding specs")
+    _wait(models, "the smoke models on 4 gloo ranks")
 
     def load(case, world):
         return [torch.load(d / f"{case}_{r}.pt", weights_only=False)
@@ -220,6 +234,7 @@ def mesh_runs(tmp_path_factory):
 
     return {"dir": d, "ep": load("ep", 8), "sharded": load("sharded", 6),
             "restore": load("restore", 4), "specs": load("specs", 1)[0],
+            "models": load("models", 4),
             "jax": dict(np.load(d / "jax_ep.npz")),
             "jax_specs": json.loads((d / "jax_specs.json").read_text())}
 
@@ -345,6 +360,33 @@ def test_forward_bitwise_with_an_identity_sharder(arch):
         assert {"attn_q", "attn_kv"} <= seen
     if cfg.moe is not None:
         assert {"moe_xe", "moe_w"} <= seen
+
+
+MODEL_ARCHS = ("granite-moe-1b-a400m", "phi3-mini-3.8b", "gemma3-12b",
+               "mamba2-1.3b")
+
+
+@pytest.mark.parametrize("arch", MODEL_ARCHS)
+def test_models_on_a_mesh_match_the_same_weights_off_it(mesh_runs, arch):
+    """On every rank, the prefill's and each decode step's logits on the
+    mesh are within 1e-4 of the same f32 model off it (vocab-parallel
+    embedding, tensor-parallel attention and FFN or MoE, mamba's scan on
+    each rank's rows, the cache laid out by its cut point), and so is
+    every gradient of one ``train_loss`` backward, the embedding's
+    included."""
+    for rank in mesh_runs["models"]:
+        r = rank[arch]
+        assert r["embed"] == "(Replicate(), Shard(dim=0))"
+        assert len(r["got"]) == len(r["want"]) == 4
+        for got, want in zip(r["got"], r["want"]):
+            np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
+                                       atol=1e-4)
+        assert "embed" in r["want_grads"]
+        assert set(r["got_grads"]) == set(r["want_grads"])
+        for name, want in r["want_grads"].items():
+            np.testing.assert_allclose(r["got_grads"][name].numpy(),
+                                       want.numpy(), rtol=1e-4, atol=1e-4,
+                                       err_msg=name)
 
 
 # ---------------------------------------------------------------------------
