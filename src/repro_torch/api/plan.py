@@ -27,7 +27,6 @@ decode machinery but no shards.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -38,7 +37,7 @@ from ..core.assignment import MMScheme, MVScheme
 from ..core.coded_matmul import split_block_columns
 from ..core.decoding import system_matrix
 from ..core.encoding import mm_encoding_matrices, mv_encoding_matrix
-from ..obs.trace import default_tracer
+from ..obs.trace import default_tracer, scope
 from ..runtime import (
     CodedExecutor,
     DecodeCache,
@@ -171,7 +170,8 @@ class CodedPlan:
         if self.executor is None:
             raise ValueError("plan compiled without an operand; pass A to "
                              "compile_plan for matvec")
-        return self.executor.matvec(x, self._task_done(done))
+        with scope("plan.matvec"):
+            return self.executor.matvec(x, self._task_done(done))
 
     def matmat(self, B, done=None) -> torch.Tensor:
         """A^T B through the paired-encode pipeline; returns (r, w)."""
@@ -181,19 +181,21 @@ class CodedPlan:
         if self.executor is None:
             raise ValueError("plan compiled without an operand; pass A to "
                              "compile_plan for matmat")
-        sch = self.scheme
-        B = as_tensor(B, self.device)
-        w = B.shape[1]
-        blocks_b = split_block_columns(B, sch.k_B)
-        if self.backend == "reference" or tracks_grad(B):
-            rb = torch.as_tensor(self._rb, dtype=B.dtype, device=self.device)
-            coded_b = torch.einsum("nk,ktc->ntc", rb, blocks_b)
-        else:
-            coded_b = encode_blocks(blocks_b, self._sup_b, self._coef_b,
-                                    self.backend)
-        # (r, w) from the executor: on cuda the decode stores it directly
-        return self.executor.matmat(coded_b, done,
-                                    merge=(sch.k_A, sch.k_B, self.r, w))
+        with scope("plan.matmat"):
+            sch = self.scheme
+            B = as_tensor(B, self.device)
+            w = B.shape[1]
+            blocks_b = split_block_columns(B, sch.k_B)
+            if self.backend == "reference" or tracks_grad(B):
+                rb = torch.as_tensor(self._rb, dtype=B.dtype,
+                                     device=self.device)
+                coded_b = torch.einsum("nk,ktc->ntc", rb, blocks_b)
+            else:
+                coded_b = encode_blocks(blocks_b, self._sup_b,
+                                        self._coef_b, self.backend)
+            # (r, w) from the executor: on cuda the decode stores it
+            return self.executor.matmat(coded_b, done,
+                                        merge=(sch.k_A, sch.k_B, self.r, w))
 
     def aggregate(self, payloads, done=None):
         """Straggler-resilient sum of the k shard-gradients.
@@ -207,19 +209,20 @@ class CodedPlan:
         if self.kind != "mv":
             raise ValueError("aggregate needs an mv plan; this plan is "
                              f"kind={self.kind!r}")
-        task_done = self._task_done(done)
-        if task_done is None:
-            task_done = np.ones(self.n_tasks, bool)
-        dplan = self._decode_cache().plan(task_done)
-        # a^T G[rows] = 1^T  <=>  a = (G[rows]^{-1})^T 1 = colsums(hinv)
-        a = dplan.hinv_dev.sum(dim=0)
-        rows = dplan.rows
-        return _tree_map(
-            lambda *xs: torch.einsum(
-                "i,i...->...", a,
-                torch.stack([xs[int(i)] for i in rows]).to(a.device,
-                                                           a.dtype)),
-            *payloads)
+        with scope("plan.aggregate"):
+            task_done = self._task_done(done)
+            if task_done is None:
+                task_done = np.ones(self.n_tasks, bool)
+            dplan = self._decode_cache().plan(task_done)
+            # a^T G[rows] = 1^T  <=>  a = (G[rows]^{-1})^T 1 = colsums(hinv)
+            a = dplan.hinv_dev.sum(dim=0)
+            rows = dplan.rows
+            return _tree_map(
+                lambda *xs: torch.einsum(
+                    "i,i...->...", a,
+                    torch.stack([xs[int(i)] for i in rows]).to(a.device,
+                                                               a.dtype)),
+                *payloads)
 
     # -- distribution ------------------------------------------------------
 
@@ -304,54 +307,51 @@ def compile_plan(A=None, *, scheme="proposed", n=None, s=None,
     ``REPRO_CODED_BACKEND`` env var overrides everything, including auto.
     Without ``A`` the plan is aggregation-only.
 
-    With a tracer set (``REPRO_TRACE``), the compile is recorded as one
-    ``plan.compile`` complete event on the host clock.
+    The compile is one ``plan.compile`` range under a recording profiler
+    and, with a tracer set (``REPRO_TRACE``), one complete event on the
+    host clock.
     """
     tr = default_tracer()
-    t0 = time.perf_counter() if tr is not None else 0.0
-    dev = resolve_device(device, A)
-    if isinstance(scheme, (MVScheme, MMScheme)):
-        sch = scheme
-    else:
-        sch = make_scheme(scheme, n=n, s=s, k_A=k_A, k_B=k_B,
-                          capacities=capacities)
-    kind = "mm" if isinstance(sch, MMScheme) else "mv"
-    G = np.asarray(system_matrix(sch, seed))
-    if A is not None:
-        A = as_tensor(A, dev)
-    resolved = choose_backend(A, backend, device=dev)
+    with scope("plan.compile", tr, cat="plan", track="plan") as span:
+        dev = resolve_device(device, A)
+        if isinstance(scheme, (MVScheme, MMScheme)):
+            sch = scheme
+        else:
+            sch = make_scheme(scheme, n=n, s=s, k_A=k_A, k_B=k_B,
+                              capacities=capacities)
+        kind = "mm" if isinstance(sch, MMScheme) else "mv"
+        G = np.asarray(system_matrix(sch, seed))
+        if A is not None:
+            A = as_tensor(A, dev)
+        resolved = choose_backend(A, backend, device=dev)
 
-    plan = CodedPlan(scheme=sch, kind=kind, backend=resolved, seed=seed,
-                     G=G, device=dev, cache_size=cache_size)
-    if A is not None:
-        _attach_operand(plan, A, resolved)
-    elif kind == "mv":
-        plan.prewarm()      # aggregation-only: warm the all-alive pattern
-    if tr is not None:
-        tr.complete("plan.compile", t0, time.perf_counter(), cat="plan",
-                    track="plan", kind=kind, backend=resolved,
-                    n=sch.n, has_operand=A is not None)
+        plan = CodedPlan(scheme=sch, kind=kind, backend=resolved, seed=seed,
+                         G=G, device=dev, cache_size=cache_size)
+        if A is not None:
+            _attach_operand(plan, A, resolved)
+        elif kind == "mv":
+            plan.prewarm()  # aggregation-only: warm the all-alive pattern
+        if tr is not None:
+            span.note(kind=kind, backend=resolved, n=sch.n,
+                      has_operand=A is not None)
     return plan
 
 
 def _attach_operand(plan: CodedPlan, A: torch.Tensor, resolved: str) -> None:
     """(Re)build the per-operand state: encode, pack, prewarm.
 
-    Shared by initial compilation and ``plan.retune``.  With a tracer
-    set, the attach is one ``plan.encode`` span of host time: on the
-    card it ends once the encode and pack are enqueued, which may be
-    before the device has finished them.
+    Shared by initial compilation and ``plan.retune``.  The attach is
+    one ``plan.encode`` span of host time (a profiler range, and a ring
+    buffer span with a tracer set): on the card it ends once the encode
+    and pack are enqueued, which may be before the device has finished
+    them.
     """
     if A.ndim != 2:
         raise ValueError(f"operand must be 2-D (t, r), got {tuple(A.shape)}")
-    tr = default_tracer()
-    if tr is not None:
-        with tr.span("plan.encode", cat="plan", track="plan",
-                     kind=plan.kind, backend=resolved,
-                     shape=list(A.shape)):
-            _attach_operand_inner(plan, A, resolved)
-        return
-    _attach_operand_inner(plan, A, resolved)
+    with scope("plan.encode", default_tracer(), cat="plan", track="plan",
+               args={"kind": plan.kind, "backend": resolved,
+                     "shape": list(A.shape)}):
+        _attach_operand_inner(plan, A, resolved)
 
 
 def _attach_operand_inner(plan: CodedPlan, A: torch.Tensor,

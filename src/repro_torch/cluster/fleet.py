@@ -991,11 +991,6 @@ class CodedFleet:
                 action="shed", plan_id=ps.plan_id)
         ps.bump("submitted")
         call.future._t_submit = time.perf_counter()
-        tr = self._tracer
-        if tr is not None:
-            tr.instant("fleet.enqueue", cat="fleet", track="fleet",
-                       plan=ps.plan_id, op=call.op,
-                       width=max(call.width, 1))
         try:
             self._loop.call_soon_threadsafe(self._enqueue, ps, call)
         except RuntimeError:                # loop torn down under us

@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import torch
 
+from ..obs.trace import scope
 from . import _build
 from .ref import bcsr_matmul_packed_ref
 
@@ -80,73 +81,78 @@ def bcsr_matmul(a_data: torch.Tensor, a_idx: torch.Tensor, b: torch.Tensor,
     into ``out`` when given.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel or raises.
+    kernel or raises.  The host side, checks to launch, is one
+    ``kernel.bcsr_matmul`` range under a recording profiler.
     """
-    if a_data.ndim != 4 or a_idx.shape != a_data.shape[:2] or b.ndim not in (
-            2, 3):
-        raise ValueError(f"bad shapes a_data {tuple(a_data.shape)}, "
-                         f"a_idx {tuple(a_idx.shape)}, b {tuple(b.shape)}")
-    n_src, J, bk, bm = a_data.shape
-    K, N = b.shape[-2:]
-    if mb < 1 or n_src % mb:
-        raise ValueError(f"mb={mb} does not divide {n_src} packed block-rows")
-    n_workers = n_src // mb
-    if b.ndim == 3 and b.shape[0] != n_workers:
-        raise ValueError(f"b holds {b.shape[0]} workers' operands, the "
-                         f"packed form {n_workers}")
-    if rows is None:
-        n_out = n_src
-    else:
-        if rows.ndim != 1:
-            raise ValueError(f"rows must be 1-d, got {tuple(rows.shape)}")
-        n_out = rows.shape[0] * mb
-    if counts is not None and counts.shape != (n_src,):
-        raise ValueError(f"counts must be ({n_src},), got "
-                         f"{tuple(counts.shape)}")
-    if out is not None and (out.shape != (n_out * bm, N)
-                            or out.dtype != torch.float32):
-        raise ValueError(f"out must be float32 {(n_out * bm, N)}, got "
-                         f"{out.dtype} {tuple(out.shape)}")
+    with scope("kernel.bcsr_matmul"):
+        if (a_data.ndim != 4 or a_idx.shape != a_data.shape[:2]
+                or b.ndim not in (2, 3)):
+            raise ValueError(f"bad shapes a_data {tuple(a_data.shape)}, "
+                             f"a_idx {tuple(a_idx.shape)}, b {tuple(b.shape)}")
+        n_src, J, bk, bm = a_data.shape
+        K, N = b.shape[-2:]
+        if mb < 1 or n_src % mb:
+            raise ValueError(f"mb={mb} does not divide {n_src} packed "
+                             "block-rows")
+        n_workers = n_src // mb
+        if b.ndim == 3 and b.shape[0] != n_workers:
+            raise ValueError(f"b holds {b.shape[0]} workers' operands, the "
+                             f"packed form {n_workers}")
+        if rows is None:
+            n_out = n_src
+        else:
+            if rows.ndim != 1:
+                raise ValueError(f"rows must be 1-d, got {tuple(rows.shape)}")
+            n_out = rows.shape[0] * mb
+        if counts is not None and counts.shape != (n_src,):
+            raise ValueError(f"counts must be ({n_src},), got "
+                             f"{tuple(counts.shape)}")
+        if out is not None and (out.shape != (n_out * bm, N)
+                                or out.dtype != torch.float32):
+            raise ValueError(f"out must be float32 {(n_out * bm, N)}, got "
+                             f"{out.dtype} {tuple(out.shape)}")
 
-    dev = a_data.device
-    a_code = _build.dtype_code(a_data, "a_data")
-    b_code = _build.dtype_code(b, "b")
-    _build.require(a_data, "a_data", dev)
-    _build.require(a_idx, "a_idx", dev, torch.int32)
-    _build.require(b, "b", dev)
-    for name, t in (("rows", rows), ("counts", counts)):
-        if t is not None:
-            _build.require(t, name, dev, torch.int32)
-    if out is not None:
-        _build.require(out, "out", dev)
-    if dev.type == "cpu":
-        res = bcsr_matmul_plain(a_data, a_idx, b, rows, mb=mb, counts=counts)
-        return res if out is None else out.copy_(res)
-    if dev.type != "cuda":
-        raise ValueError(f"bcsr_matmul: unsupported device {dev}")
-    if (bk, bm) != (TILE, TILE):
-        raise ValueError(f"bcsr_matmul: the kernel takes {TILE}x{TILE} "
-                         f"tiles, got {bk}x{bm}")
-    if J > MAX_SLOTS:
-        raise ValueError(f"bcsr_matmul: {J} slots per block-row exceed the "
-                         f"kernel's {MAX_SLOTS}")
-    if a_data.data_ptr() % 16:
-        raise ValueError("bcsr_matmul: a_data must start 16-byte aligned")
-    if out is None:
-        out = torch.empty((n_out * bm, N), dtype=torch.float32, device=dev)
-    if n_out == 0 or N == 0:
-        return out.zero_()
-    # the launcher makes dev current itself, only when it is not already
-    err = _build.library().repro_bcsr_matmul(
-        a_data.data_ptr(), a_code, a_idx.data_ptr(),
-        None if counts is None else counts.data_ptr(),
-        b.data_ptr(), b_code, K * N if b.ndim == 3 else 0,
-        None if rows is None else rows.data_ptr(), out.data_ptr(),
-        n_out, mb, n_workers, J, K, N, dev.index,
-        _build.stream_ptr(dev))
-    _build.check(err, "bcsr_matmul")
-    _build.count_launch(bcsr_matmul)
-    return out
+        dev = a_data.device
+        a_code = _build.dtype_code(a_data, "a_data")
+        b_code = _build.dtype_code(b, "b")
+        _build.require(a_data, "a_data", dev)
+        _build.require(a_idx, "a_idx", dev, torch.int32)
+        _build.require(b, "b", dev)
+        for name, t in (("rows", rows), ("counts", counts)):
+            if t is not None:
+                _build.require(t, name, dev, torch.int32)
+        if out is not None:
+            _build.require(out, "out", dev)
+        if dev.type == "cpu":
+            res = bcsr_matmul_plain(a_data, a_idx, b, rows, mb=mb,
+                                    counts=counts)
+            return res if out is None else out.copy_(res)
+        if dev.type != "cuda":
+            raise ValueError(f"bcsr_matmul: unsupported device {dev}")
+        if (bk, bm) != (TILE, TILE):
+            raise ValueError(f"bcsr_matmul: the kernel takes {TILE}x{TILE} "
+                             f"tiles, got {bk}x{bm}")
+        if J > MAX_SLOTS:
+            raise ValueError(f"bcsr_matmul: {J} slots per block-row exceed "
+                             f"the kernel's {MAX_SLOTS}")
+        if a_data.data_ptr() % 16:
+            raise ValueError("bcsr_matmul: a_data must start 16-byte aligned")
+        if out is None:
+            out = torch.empty((n_out * bm, N), dtype=torch.float32,
+                              device=dev)
+        if n_out == 0 or N == 0:
+            return out.zero_()
+        # the launcher makes dev current itself, only when it is not already
+        err = _build.library().repro_bcsr_matmul(
+            a_data.data_ptr(), a_code, a_idx.data_ptr(),
+            None if counts is None else counts.data_ptr(),
+            b.data_ptr(), b_code, K * N if b.ndim == 3 else 0,
+            None if rows is None else rows.data_ptr(), out.data_ptr(),
+            n_out, mb, n_workers, J, K, N, dev.index,
+            _build.stream_ptr(dev))
+        _build.check(err, "bcsr_matmul")
+        _build.count_launch(bcsr_matmul)
+        return out
 
 
 bcsr_matmul.launches = 0

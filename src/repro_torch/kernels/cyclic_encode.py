@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from ..obs.trace import scope
 from . import _build
 from .ref import cyclic_encode_ref
 
@@ -74,39 +75,42 @@ def cyclic_encode(blocks: torch.Tensor, sup: torch.Tensor,
     Returns coded : (n, T, C) float32.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel or raises.
+    kernel or raises.  The host side, checks to launch, is one
+    ``kernel.cyclic_encode`` range under a recording profiler.
     """
-    if blocks.ndim != 3 or sup.ndim != 2 or coef.shape != sup.shape:
-        raise ValueError(f"bad shapes blocks {tuple(blocks.shape)}, "
-                         f"sup {tuple(sup.shape)}, coef {tuple(coef.shape)}")
-    dev = blocks.device
-    code = _build.dtype_code(blocks, "blocks")
-    if blocks.shape[2] > 1 and blocks.stride(2) != 1:
-        raise ValueError("blocks' last dimension must be unit-stride")
-    _build.require(sup, "sup", dev, torch.int32)
-    _build.require(coef, "coef", dev, torch.float32)
-    if dev.type == "cpu":
-        return cyclic_encode_plain(blocks, sup, coef)
-    if dev.type != "cuda":
-        raise ValueError(f"cyclic_encode: unsupported device {dev}")
-    k, t, c = blocks.shape
-    n, w = sup.shape
-    if t * c >= 2**31:
-        raise ValueError(f"cyclic_encode: a ({t}, {c}) plane exceeds the "
-                         f"kernel's 2^31 elements")
-    out = torch.empty((n, t, c), dtype=torch.float32, device=dev)
-    if out.numel() == 0:
+    with scope("kernel.cyclic_encode"):
+        if blocks.ndim != 3 or sup.ndim != 2 or coef.shape != sup.shape:
+            raise ValueError(f"bad shapes blocks {tuple(blocks.shape)}, "
+                             f"sup {tuple(sup.shape)}, "
+                             f"coef {tuple(coef.shape)}")
+        dev = blocks.device
+        code = _build.dtype_code(blocks, "blocks")
+        if blocks.shape[2] > 1 and blocks.stride(2) != 1:
+            raise ValueError("blocks' last dimension must be unit-stride")
+        _build.require(sup, "sup", dev, torch.int32)
+        _build.require(coef, "coef", dev, torch.float32)
+        if dev.type == "cpu":
+            return cyclic_encode_plain(blocks, sup, coef)
+        if dev.type != "cuda":
+            raise ValueError(f"cyclic_encode: unsupported device {dev}")
+        k, t, c = blocks.shape
+        n, w = sup.shape
+        if t * c >= 2**31:
+            raise ValueError(f"cyclic_encode: a ({t}, {c}) plane exceeds the "
+                             f"kernel's 2^31 elements")
+        out = torch.empty((n, t, c), dtype=torch.float32, device=dev)
+        if out.numel() == 0:
+            return out
+        if w == 0:
+            return out.zero_()
+        elems = _chunk_elems(k, n, w, blocks.element_size())
+        err = _build.library().repro_cyclic_encode(
+            blocks.data_ptr(), code, blocks.stride(0), blocks.stride(1),
+            sup.data_ptr(), coef.data_ptr(), out.data_ptr(), k, t, c, n, w,
+            elems, dev.index, _build.stream_ptr(dev))
+        _build.check(err, "cyclic_encode")
+        _build.count_launch(cyclic_encode)
         return out
-    if w == 0:
-        return out.zero_()
-    elems = _chunk_elems(k, n, w, blocks.element_size())
-    err = _build.library().repro_cyclic_encode(
-        blocks.data_ptr(), code, blocks.stride(0), blocks.stride(1),
-        sup.data_ptr(), coef.data_ptr(), out.data_ptr(), k, t, c, n, w,
-        elems, dev.index, _build.stream_ptr(dev))
-    _build.check(err, "cyclic_encode")
-    _build.count_launch(cyclic_encode)
-    return out
 
 
 cyclic_encode.launches = 0

@@ -11,7 +11,11 @@ back into the runtime it observes.
 spans become ``ph="X"`` events, instants ``ph="i"``, every distinct
 ``track`` becomes a tid with a ``thread_name`` metadata event, and all
 timestamps move from perf_counter seconds to microseconds relative to
-the earliest record.  Open the result at https://ui.perfetto.dev.
+the earliest record -- or, given ``wall_of``, to epoch microseconds.
+``write_chrome_trace`` stamps epoch microseconds through the tracer's
+``(wall, mono)`` anchor, the clock ``torch.profiler`` stamps its own
+events on, so a file it writes and a profiler trace of the same process
+load onto one timeline.  Open the result at https://ui.perfetto.dev.
 """
 
 from __future__ import annotations
@@ -21,11 +25,16 @@ import json
 _PID = 1
 
 
-def chrome_trace(events: list[dict], *, process_name: str = "repro_torch"
-                 ) -> dict:
-    """Chrome trace-event JSON object for a list of tracer records."""
+def chrome_trace(events: list[dict], *, process_name: str = "repro_torch",
+                 wall_of=None) -> dict:
+    """Chrome trace-event JSON object for a list of tracer records.
+    ``wall_of`` (perf_counter s -> epoch s, ``Tracer.wall_of``) stamps
+    epoch microseconds; without it they count from the earliest record."""
     events = [e for e in events if "t" in e]
     t0 = min((e["t"] for e in events), default=0.0)
+
+    def stamp(t: float) -> float:
+        return (t - t0) * 1e6 if wall_of is None else wall_of(t) * 1e6
     tids: dict[str, int] = {}
     out: list[dict] = [{
         "ph": "M", "pid": _PID, "tid": 0, "name": "process_name",
@@ -47,7 +56,7 @@ def chrome_trace(events: list[dict], *, process_name: str = "repro_torch"
             "ph": e.get("ph", "i"),
             "pid": _PID,
             "tid": tid_of(str(e.get("track", "main"))),
-            "ts": (e["t"] - t0) * 1e6,
+            "ts": stamp(e["t"]),
             "args": dict(e.get("args", {})),
         }
         if e.get("trace"):
@@ -86,7 +95,8 @@ def write_chrome_trace(path: str, tracer, *, fleet=None, router=None
                        ) -> int:
     """Merge the tracer buffer with the fleet event log and router
     dispatch logs (all on the perf_counter timeline) and write one
-    Chrome trace JSON file.  Returns the number of trace events."""
+    Chrome trace JSON file, stamped in epoch microseconds.  Returns the
+    number of trace events."""
     events = list(tracer.events())
     if fleet is not None:
         events += _log_records(getattr(fleet, "event_log", []),
@@ -98,7 +108,7 @@ def write_chrome_trace(path: str, tracer, *, fleet=None, router=None
                                    f"router-{name}", tracer.t0_wall,
                                    tracer.t0_mono)
     events.sort(key=lambda e: e.get("t", 0.0))
-    doc = chrome_trace(events)
+    doc = chrome_trace(events, wall_of=tracer.wall_of)
     with open(path, "w", encoding="utf-8") as f:
         json.dump(doc, f)
     return len(doc["traceEvents"])

@@ -1,7 +1,23 @@
-"""The ``Tracer``: spans and events in a bounded monotonic ring buffer.
+"""The ``Tracer``: spans and events in a bounded monotonic ring buffer,
+and ``scope``: the program's ranges on ``torch.profiler``'s clock.
 
-A copy of ``repro.obs.trace``: framework-neutral, nothing of it changes
-in the port.
+The ``Tracer`` is a copy of ``repro.obs.trace``'s, framework-neutral.
+The port adds one span helper, ``scope``, used by every span site of
+the port.  It has two sinks:
+
+- **The profiler.**  While a ``torch.profiler`` session records, every
+  scope opens a ``RecordFunctionFast`` range under its name: a host op
+  in the profiler's own trace, on its clock, so the device trace's idle
+  gaps can be named by the program's code (``bench/devtrace.py``).
+  ``PROGRAM_SPANS`` lists the names.
+- **The ring buffer.**  A scope given a tracer also records one complete
+  span there, exactly as ``Tracer.span`` does.  Per-call ranges
+  (``plan.matvec``, ``decode_cache.plan``, ``kernel.*``, ...) are never
+  given one: the ring buffer stays the request and round view the port
+  shares with the reference.
+
+With neither, ``scope`` returns one shared no-op context: one profiler
+check and one ``None`` test, nothing allocated.
 
 Design constraints:
 
@@ -43,17 +59,79 @@ ENV_TRACE = "REPRO_TRACE"
 ENV_TRACE_BUF = "REPRO_TRACE_BUF"
 DEFAULT_BUF = 4096
 
+# every range the program opens under the profiler: the plan API's
+# operations, the decode cache, each kernel wrapper's host side
+PROGRAM_SPANS = (
+    "plan.compile", "plan.encode",
+    "plan.matvec", "plan.matmat", "plan.aggregate",
+    "decode_cache.plan", "decode_cache.miss",
+    "kernel.bcsr_matmul", "kernel.cyclic_encode",
+    "kernel.decode_matmul", "kernel.decode_matmul.prepare",
+)
+
 
 def trace_buf_capacity() -> int:
     """Ring-buffer capacity: ``REPRO_TRACE_BUF`` or 4096."""
     return env_int(ENV_TRACE_BUF, DEFAULT_BUF)
 
 
+class _Unbound:
+    """Stands for ``torch.autograd.profiler`` until a scope first asks
+    whether a profiler records: then torch is imported (so ``attrib``
+    and ``export`` load without it) and the module takes its place."""
+
+    @property
+    def _is_profiler_enabled(self) -> bool:
+        global _profiler, _fast_range
+        import torch.autograd.profiler  # noqa: PLC0415
+
+        _fast_range = torch._C._profiler._RecordFunctionFast
+        _profiler = torch.autograd.profiler
+        return _profiler._is_profiler_enabled
+
+
+# ``_profiler._is_profiler_enabled``: the flag every torch profiler
+# session sets while it records; read as a module attribute, it is the
+# cheapest check there is
+_profiler = _Unbound()
+_fast_range = None              # torch's RecordFunctionFast, once bound
+
+
+class _NoSpan:
+    """The context ``scope`` returns with no profiler and no tracer."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, exc_type, exc, tb):
+        return None
+
+
+NO_SPAN = _NoSpan()
+
+
+def scope(name: str, tracer: "Tracer | None" = None, *, cat: str = "span",
+          track: str = "main", args: dict | None = None):
+    """``with scope("plan.matvec"): ...`` -- a range under ``name`` in a
+    recording profiler and, with ``tracer``, one complete span in its
+    ring buffer (``cat``, ``track`` and ``args`` as ``Tracer.span``
+    takes them).  With neither, the shared ``NO_SPAN``."""
+    if tracer is not None:
+        return _Span(tracer, name, cat, track, 0, {} if args is None
+                     else args)
+    if _profiler._is_profiler_enabled:
+        return _fast_range(name)
+    return NO_SPAN
+
+
 class _Span:
-    """Context manager recording one complete ("X") span on exit."""
+    """Context manager recording one complete ("X") span on exit, and a
+    profiler range over the same block while a profiler records."""
 
     __slots__ = ("_tracer", "_name", "_cat", "_track", "_trace", "_args",
-                 "_t0")
+                 "_t0", "_range")
 
     def __init__(self, tracer, name, cat, track, trace, args):
         self._tracer = tracer
@@ -64,15 +142,25 @@ class _Span:
         self._args = args
 
     def __enter__(self):
+        self._range = (_fast_range(self._name)
+                       if _profiler._is_profiler_enabled else None)
+        if self._range is not None:
+            self._range.__enter__()
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, exc_type, exc, tb):
         t1 = time.perf_counter()
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
         self._tracer.complete(self._name, self._t0, t1, cat=self._cat,
                               track=self._track, trace=self._trace,
                               **self._args)
         return False
+
+    def note(self, **args) -> None:
+        """Add args known only inside the block to the recorded span."""
+        self._args.update(args)
 
 
 class Tracer:

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from .._device import host_mask
+from ..obs.trace import scope
 
 
 @dataclass(frozen=True)
@@ -53,34 +54,41 @@ class DecodeCache:
         self._lock = threading.Lock()
 
     def plan(self, done) -> DecodePlan:
-        mask = host_mask(done)
-        if mask.ndim != 1 or mask.shape[0] != self._G.shape[0]:
-            raise ValueError(
-                f"done mask shape {mask.shape} incompatible with "
-                f"{self._G.shape[0]} tasks")
-        key = np.packbits(mask).tobytes()
-        with self._lock:
-            cached = self._plans.get(key)
-            if cached is not None:
-                self._plans.move_to_end(key)
-                self.hits += 1
-                return cached
+        """The pattern's decode plan: one ``decode_cache.plan`` range, and
+        a ``decode_cache.miss`` range inside it on a miss."""
+        with scope("decode_cache.plan"):
+            mask = host_mask(done)
+            if mask.ndim != 1 or mask.shape[0] != self._G.shape[0]:
+                raise ValueError(
+                    f"done mask shape {mask.shape} incompatible with "
+                    f"{self._G.shape[0]} tasks")
+            key = np.packbits(mask).tobytes()
+            with self._lock:
+                cached = self._plans.get(key)
+                if cached is not None:
+                    self._plans.move_to_end(key)
+                    self.hits += 1
+                    return cached
+            with scope("decode_cache.miss"):
+                plan = self._solve(mask, key)
+            with self._lock:
+                self._plans[key] = plan
+                self.misses += 1
+                if len(self._plans) > self.maxsize:
+                    self._plans.popitem(last=False)
+            return plan
 
+    def _solve(self, mask: np.ndarray, key: bytes) -> DecodePlan:
+        """A miss: the host k x k inversion and the two uploads."""
         rows = np.flatnonzero(mask)[: self.k]
         if rows.shape[0] < self.k:
             raise ValueError(
                 f"only {rows.shape[0]} tasks done, need k={self.k}")
         hinv = np.linalg.inv(self._G[rows]).astype(np.float32)
-        plan = DecodePlan(
+        return DecodePlan(
             key=key, rows=rows, hinv=hinv,
             hinv_dev=torch.from_numpy(hinv).to(self.device),
             rows_dev=torch.from_numpy(rows.astype(np.int32)).to(self.device))
-        with self._lock:
-            self._plans[key] = plan
-            self.misses += 1
-            if len(self._plans) > self.maxsize:
-                self._plans.popitem(last=False)
-        return plan
 
     def patterns(self) -> np.ndarray:
         """(P, n_tasks) bool -- the cached straggler patterns, LRU order."""

@@ -42,6 +42,7 @@ from ..kernels.decode_matmul import (
     prepare_decode,
 )
 from ..kernels.ref import cyclic_encode_ref
+from ..obs.trace import scope
 from .decode_cache import DecodeCache
 from .pack import PackedShards, bsr_shards, pack_coded_blocks
 
@@ -316,21 +317,24 @@ class CodedExecutor:
         return u if merge is None else merge_unknowns(u, *merge)
 
     def _decode(self, plan, y, mode, **kw):
-        """One cuda decode launch.  A layout (y's shape, strides and dtype
-        and the scalars) is checked on its first call and then launched
-        without checks: the decode plans' inverse and rows always are
-        f32 and int32 on this executor's device."""
-        rows = plan.rows_dev if mode == "gather" else None
-        if not y.is_cuda:
-            return decode_matmul(plan.hinv_dev, y, mode, rows=rows, **kw)
-        key = (mode, y.shape, y.stride(), y.dtype, *kw.values())
-        layout = self._decode_layouts.get(key)
-        if layout is None:
-            if len(self._decode_layouts) >= 64:
-                self._decode_layouts.clear()
-            layout = self._decode_layouts[key] = prepare_decode(
-                plan.hinv_dev, y, mode, rows=rows, **kw)
-        return launch_decode(layout, plan.hinv_dev, y, rows)
+        """One cuda decode launch, one ``kernel.decode_matmul`` range.  A
+        layout (y's shape, strides and dtype and the scalars) is checked
+        on its first call, in a ``kernel.decode_matmul.prepare`` range,
+        and then launched without checks: the decode plans' inverse and
+        rows always are f32 and int32 on this executor's device."""
+        with scope("kernel.decode_matmul"):
+            rows = plan.rows_dev if mode == "gather" else None
+            if not y.is_cuda:
+                return decode_matmul(plan.hinv_dev, y, mode, rows=rows, **kw)
+            key = (mode, y.shape, y.stride(), y.dtype, *kw.values())
+            layout = self._decode_layouts.get(key)
+            if layout is None:
+                if len(self._decode_layouts) >= 64:
+                    self._decode_layouts.clear()
+                with scope("kernel.decode_matmul.prepare"):
+                    layout = self._decode_layouts[key] = prepare_decode(
+                        plan.hinv_dev, y, mode, rows=rows, **kw)
+            return launch_decode(layout, plan.hinv_dev, y, rows)
 
     # -- decode-only: worker results supplied by the caller ----------------
 

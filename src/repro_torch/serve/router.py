@@ -564,11 +564,6 @@ class Router:
             tq.queue.append(rc)
             tq.counters["submitted"] += 1
             self._cond.notify_all()
-        tr = self._tracer
-        if tr is not None:
-            tr.instant("router.admit", cat="router", track="router",
-                       endpoint=name, tenant=tenant, cols=cols,
-                       deadline_s=deadline)
         return fut
 
     def call(self, name: str, x, **kw):

@@ -4,7 +4,9 @@ the plan spans, traced rounds whose segments telescope to the round
 wall on every transport, attribution equal in both packages on one
 event list and naming a slowed worker, Chrome-trace and Prometheus
 exports, ``python -m repro_torch.obs`` on the CPU, and the fleet's
-re-encode cut following ``observed_rates()``.
+re-encode cut following ``observed_rates()``.  The port's own: the
+per-call ranges (``obs.trace.scope``) under a CPU ``torch.profiler``,
+kept out of the ring buffer, and the export on the profiler's clock.
 
 Host workers throughout (``device="cpu"``); ``chip_smoke.py`` traces
 card workers."""
@@ -132,6 +134,160 @@ def test_untraced_compile_records_nothing(monkeypatch):
     plan = port_plan(np.ones((16, 12), np.float32))
     plan.retune(torch.ones(16, 12))
     assert trace_mod._GLOBAL is None
+
+
+# ---------------------------------------------------------------------------
+# the program's ranges on the profiler's clock
+# ---------------------------------------------------------------------------
+
+
+def profiled(fn):
+    """Run ``fn`` under a CPU ``torch.profiler``; its host events as
+    (name, start ns, end ns, user annotation) and ``fn``'s result."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    events = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns(),
+               e.is_user_annotation())
+              for e in prof.profiler.kineto_results.events()]
+    return events, out
+
+
+def program_ranges(events):
+    return [e for e in events if e[0] in trace_mod.PROGRAM_SPANS]
+
+
+def inside(child, parent) -> bool:
+    return parent[1] <= child[1] and child[2] <= parent[2]
+
+
+MASK = np.array([1, 1, 0, 1, 0, 1], bool)
+
+
+def cuda_calls(operand):
+    """One call of each per-call operation of ``cuda``-backend plans on
+    CPU tensors (the kernels' plain versions), by operation name."""
+    A, xs = operand
+    mv = port_plan(A, backend="cuda")
+    mm = port_plan(A, backend="cuda", n=6, k_A=2, k_B=2)
+    B = torch.from_numpy(xs[0].T.copy())
+    payloads = [torch.full((3,), float(i)) for i in range(6)]
+    return {"matvec": lambda: mv.matvec(torch.from_numpy(xs[0]), MASK),
+            "matmat": lambda: mm.matmat(B, MASK),
+            "aggregate": lambda: mv.aggregate(payloads, MASK)}
+
+
+@pytest.mark.parametrize("op, children", [
+    ("matvec", {"decode_cache.plan", "kernel.bcsr_matmul",
+                "kernel.decode_matmul"}),
+    ("matmat", {"kernel.cyclic_encode", "decode_cache.plan",
+                "kernel.bcsr_matmul", "kernel.decode_matmul"}),
+    ("aggregate", {"decode_cache.plan"}),
+])
+def test_a_call_records_its_ranges_inside_the_operation(operand, op,
+                                                        children):
+    """Under a profiler, one call of a ``cuda``-backend plan records
+    ``plan.<op>`` once, enclosing the decode cache's and each kernel
+    wrapper's range."""
+    call = cuda_calls(operand)[op]
+    call()                              # the pattern's miss comes first
+    events, _ = profiled(call)
+    ranges = program_ranges(events)
+    outer = [e for e in ranges if e[0] == f"plan.{op}"]
+    assert len(outer) == 1
+    inner = [e for e in ranges if e is not outer[0]]
+    assert {e[0] for e in inner} == children
+    assert all(inside(e, outer[0]) for e in inner)
+
+
+@pytest.mark.parametrize("pattern, misses", [("new", 1), ("repeated", 0)])
+def test_a_decode_miss_records_one_range(operand, pattern, misses):
+    """A straggler pattern the cache has not seen records one
+    ``decode_cache.miss`` inside ``decode_cache.plan``; a repeated one
+    records none."""
+    A, xs = operand
+    plan = port_plan(A, backend="cuda")
+    x = torch.from_numpy(xs[0])
+    if pattern == "repeated":
+        plan.matvec(x, MASK)
+    cache = plan.executor.cache
+    before = cache.misses
+    events, _ = profiled(lambda: plan.matvec(x, MASK))
+    miss = [e for e in events if e[0] == "decode_cache.miss"]
+    lookup = [e for e in events if e[0] == "decode_cache.plan"]
+    assert len(miss) == cache.misses - before == misses
+    assert len(lookup) == 1 and all(inside(e, lookup[0]) for e in miss)
+
+
+def test_untraced_scope_is_the_shared_no_op(operand, monkeypatch):
+    """With no profiler and no tracer, every scope is one shared no-op
+    context, and a call never builds the process-global tracer."""
+    monkeypatch.delenv("REPRO_TRACE", raising=False)
+    monkeypatch.setattr(trace_mod, "_GLOBAL", None)
+    assert trace_mod.scope("plan.matvec") is trace_mod.NO_SPAN
+    assert trace_mod.scope("kernel.bcsr_matmul", None) is trace_mod.NO_SPAN
+    cuda_calls(operand)["matvec"]()
+    assert trace_mod._GLOBAL is None
+
+
+@pytest.mark.parametrize("under_profiler", [False, True])
+def test_per_call_ranges_stay_out_of_the_ring_buffer(operand, monkeypatch,
+                                                     under_profiler):
+    """With ``REPRO_TRACE=1`` the compile records its spans, and the
+    calls after it add nothing to the ring buffer, profiled or not."""
+    monkeypatch.setenv("REPRO_TRACE", "1")
+    monkeypatch.setattr(trace_mod, "_GLOBAL", None)
+    calls = cuda_calls(operand)
+    tr = trace_mod.default_tracer()
+    held = tr.events()
+    assert {e["name"] for e in held} == {"plan.compile", "plan.encode"}
+
+    def run():
+        for call in calls.values():
+            call()
+    if under_profiler:
+        profiled(run)
+    else:
+        run()
+    assert tr.events() == held
+
+
+def test_program_ranges_are_host_ops_not_annotations(operand, monkeypatch):
+    """Every program range, the compile's with a tracer set too, is a
+    plain host op (``bench/devtrace.py`` names idle gaps by those), and
+    every name begins with a prefix the benchmark's reader selects."""
+    monkeypatch.setenv("REPRO_TRACE", "1")
+    monkeypatch.setattr(trace_mod, "_GLOBAL", None)
+
+    def run():
+        for call in cuda_calls(operand).values():
+            call()
+    events, _ = profiled(run)
+    ranges = program_ranges(events)
+    assert {e[0] for e in ranges} == set(trace_mod.PROGRAM_SPANS) - {
+        "kernel.decode_matmul.prepare"}         # a layout check: cuda only
+    assert not any(e[3] for e in ranges)
+    assert all(name.startswith(("plan.", "decode_cache.", "kernel."))
+               for name in trace_mod.PROGRAM_SPANS)
+
+
+def test_ring_buffer_export_shares_the_profilers_clock(operand, tmp_path,
+                                                       monkeypatch):
+    """``write_chrome_trace`` stamps epoch microseconds: a span recorded
+    in both sinks starts within 1 ms in the file and in the profiler's
+    trace of the same process."""
+    A, _ = operand
+    monkeypatch.setenv("REPRO_TRACE", "1")
+    monkeypatch.setattr(trace_mod, "_GLOBAL", None)
+    events, _ = profiled(lambda: port_plan(A, backend="cuda"))
+    path = tmp_path / "trace.json"
+    write_chrome_trace(str(path), trace_mod.default_tracer())
+    doc = json.loads(path.read_text())
+    for name in ("plan.compile", "plan.encode"):
+        ts = [e["ts"] for e in doc["traceEvents"] if e["name"] == name]
+        starts = [e[1] * 1e-3 for e in events if e[0] == name]
+        assert len(ts) == len(starts) == 1
+        assert abs(ts[0] - starts[0]) < 1e3, (ts, starts)
 
 
 # ---------------------------------------------------------------------------
