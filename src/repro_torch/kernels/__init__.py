@@ -29,3 +29,4 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+    bcsr_matmul.narrow_launches = bcsr_matmul.wide_launches = 0

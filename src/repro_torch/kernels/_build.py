@@ -139,11 +139,14 @@ def _load() -> ctypes.PyDLL:
     return lib
 
 
-def count_launch(fn) -> None:
-    """Add one to ``fn.launches`` (a wrapper's launch counter); exact
-    when several threads launch at once."""
+def count_launch(fn, *also: str) -> None:
+    """Add one to ``fn.launches`` (a wrapper's launch counter) and to each
+    counter of ``fn`` named in ``also`` (a split of it); exact when
+    several threads launch at once."""
     with _count_lock:
         fn.launches += 1
+        for name in also:
+            setattr(fn, name, getattr(fn, name) + 1)
 
 
 def check(err: int, name: str) -> None:

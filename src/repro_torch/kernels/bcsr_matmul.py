@@ -5,33 +5,50 @@ Replaces the TPU kernel ``src/repro/kernels/bcsr_matmul.py::bcsr_matmul``
 sparsity-preserved coded shard, one (bk x bm) tile of A per slot of the
 packed form (``repro_torch.runtime.pack``).
 
-What bounds it on an H100: at the matvec (N = 8 requests) bytes, the
-nonzero A tiles of the live workers over the memory rate.  At a Fig. 4
-matmat (N = 1024 columns of a coded B shard) it does 2 * N flops per A
-element, and f32 FFMA and the B rows the tiles select share the bound.
+What bounds it on an H100: at a matvec (N = 1-8 rows of requests) bytes,
+the nonzero A tiles of the live workers over the memory rate.  At a
+Fig. 4 matmat (N = 1024 columns of a coded B shard) it does 2 * N flops
+per A element, and f32 FFMA and the B rows the tiles select share the
+bound.  In either, each output is one f32 sum over its block-row's real
+slots and their K rows in order, as the plain version sums it: nothing
+splits K, so the parallelism is the outputs.
 
-What the design does about it (``csrc/bcsr_matmul.cu``):
+What the design does about it (``csrc/bcsr_matmul.cu``), in two
+layouts chosen by N:
 
-  * one warp (N < 64) or one thread block (N >= 64) per (output
-    block-row, N-tile); the TPU grid's sequential slot axis becomes a
-    loop inside it, fed by a ring of 3-4 shared-memory stages that
-    16-byte ``cp.async`` copies fill several slots ahead, and C is
-    written once from f32 registers, each output summed over the slots
-    in order;
-  * only the block-row's real slots (``counts``, from the packer's
-    ``slot_counts``) are walked: pad slots are never read;
-  * the live workers are named by ``rows`` and read straight out of the
-    full packed operand, so the fastest-k gather the reference builds
-    (``select_workers``, a copy of every live shard per call) never
-    exists; with B given per worker (n_workers, K, N), a matmat's k
-    products are one launch;
-  * register tiles sized to N: at N < 64 each lane keeps 8 columns of
-    one output row (8 FMAs per 2-3 shared loads), at N >= 64 each
-    thread a 4 x 4 tile (16 FMAs per 2); f32 products are full f32 FFMA;
-  * bf16 operands are converted to f32 once per slot in shared memory
-    (a bf16 plan's matmat multiplies bf16 shards by the f32 coded B);
-  * the ragged N and K edges are masked in the kernel instead of padding
-    B.
+  * narrow (N < 64, every matvec): one warp per (output block-row,
+    column tile); a lane owns one of the block-row's 32 output columns
+    and NC = N columns of B (N <= 8; tiles of 8 above), so no FMA or B
+    load is spent past N.  Each warp streams its block-row's slots
+    through its own ring of 3 shared-memory stages: one lane brings each
+    32 x 32 A tile in with one bulk copy (TMA) and, where the slot's 32
+    rows of B lie whole and 16-byte aligned in B, its B tile with
+    another, both completed on the stage's mbarrier, so the lanes spend
+    no instructions on copies; otherwise the lanes stage B by
+    ``cp.async`` (plain loads only for a bf16 B of odd width or one not
+    4-byte aligned).  Each K row's B values are read by the widest
+    shared-memory loads the row's alignment allows, those loads being
+    what bounds the FMA loop.  The warps are persistent, one-warp
+    blocks, as many as the card holds at once (its SM count times the
+    blocks an SM holds at the kernel's shared memory), cut so that each
+    walks the same number of tasks give or take one: no fraction of a
+    wave is left at the end of a large grid.
+  * wide (N >= 64, the matmat): one thread block per (output block-row,
+    128-column tile), a ring of 3 stages filled by 16-byte ``cp.async``
+    copies, each thread a 4 x 4 register tile (16 FMAs per 2 shared
+    loads), bf16 A tiles converted to f32 once per slot too (a bf16
+    plan's matmat multiplies bf16 shards by the f32 coded B).
+
+In both, bf16 A is widened to f32 exactly and a bf16 B tile once per
+slot, and only the block-row's real slots (``counts``, from the packer's
+``slot_counts``) are walked: pad slots are never read.  The live
+workers are named by ``rows`` and read straight out of the full packed
+operand, so the fastest-k gather the reference builds
+(``select_workers``, a copy of every live shard per call) never exists;
+with B given per worker (n_workers, K, N), a matmat's k products are one
+launch.  The ragged N and K edges are masked in the kernel instead of
+padding B.  ``bcsr_matmul.launches`` counts launches,
+``narrow_launches`` and ``wide_launches`` split them by layout.
 
 The kernel is specialised on the ``cuda`` backend's 32 x 32 tile; the
 plain version takes any tile.
@@ -48,6 +65,9 @@ from .ref import bcsr_matmul_packed_ref
 TILE = 32
 # slot indices of one block-row live in shared memory beside the ring
 MAX_SLOTS = 8192
+# the kernel takes its wide layout from this many columns of B on (the
+# dispatch in csrc/bcsr_matmul.cu), as the per-layout counters count
+WIDE_FROM = 64
 
 
 def bcsr_matmul_plain(a_data: torch.Tensor, a_idx: torch.Tensor,
@@ -151,8 +171,11 @@ def bcsr_matmul(a_data: torch.Tensor, a_idx: torch.Tensor, b: torch.Tensor,
             n_out, mb, n_workers, J, K, N, dev.index,
             _build.stream_ptr(dev))
         _build.check(err, "bcsr_matmul")
-        _build.count_launch(bcsr_matmul)
+        _build.count_launch(bcsr_matmul, "wide_launches" if N >= WIDE_FROM
+                            else "narrow_launches")
         return out
 
 
 bcsr_matmul.launches = 0
+bcsr_matmul.narrow_launches = 0
+bcsr_matmul.wide_launches = 0

@@ -92,18 +92,77 @@ def test_bcsr_matmul_live_rows(hopper):
     close(out, bcsr_matmul_plain(a_data, a_idx, b, rows, mb=mb))
 
 
-@pytest.mark.parametrize("N", [1, 2, 3, 8, 64])
-def test_bcsr_matmul_sums_in_its_plain_versions_order(hopper, N):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N", [1, 2, 3, 4, 5, 6, 7, 8, 64])
+def test_bcsr_matmul_sums_in_its_plain_versions_order(hopper, N, dtype):
     """Each output is one f32 sum over the slots and K rows in order, at
     every width: bitwise the plain version, one column included (where
     the library would take a GEMV that sums as a tree).  The shape is a
-    card worker's task of the LM head, where the two orders differ."""
+    card worker's task of the LM head, where the two orders differ; A
+    in f32 and in bf16 (a coded head's shards) times an f32 B."""
     rng = np.random.default_rng(N)
     a = block_sparse(rng, 3072, 8032, 8, 8, 0.1)
     a_data, a_idx, _ = pack_bcsr(a, 32, 32)
-    args = (t(a_data).to(hopper), t(a_idx, torch.int32).to(hopper),
+    args = (t(a_data, dtype).to(hopper), t(a_idx, torch.int32).to(hopper),
             t(rng.standard_normal((3072, N))).to(hopper))
     assert torch.equal(bcsr_matmul(*args), bcsr_matmul_plain(*args))
+
+
+@pytest.mark.parametrize("b_offset", [0, 1], ids=["aligned", "offset"])
+@pytest.mark.parametrize("dtype,b_dtype", [
+    (torch.bfloat16, torch.float32), (torch.float32, torch.float32),
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16)],
+    ids=["bf16-f32", "f32", "bf16", "f32-bf16"])
+def test_bcsr_matmul_narrow_walks_every_block_row_once(hopper, dtype,
+                                                       b_dtype, b_offset):
+    """More output block-rows than the card holds narrow warps at once,
+    and a count no number of rounds divides: live ``rows``, ``counts``
+    with NaN and out-of-range indices in the pad slots, arbitrary slot
+    K-blocks, ragged K, widths 1-8, 16, 24 and 32 and two column-tiled
+    ones, B 16-byte aligned or one element off (each way of staging B),
+    against the
+    plain version.  The output starts as NaN, so a block-row left out or
+    written twice with garbage shows."""
+    gen = torch.Generator(device=hopper)
+    gen.manual_seed(11)
+    n, mb, K, J = 6, 1001, 317, 10
+    a_data = torch.randn((n * mb, J, 32, 32), generator=gen,
+                         device=hopper).to(dtype)
+    a_idx = torch.randint(0, -(-K // 32), (n * mb, J), generator=gen,
+                          device=hopper, dtype=torch.int32)
+    counts = torch.randint(0, J + 1, (n * mb,), generator=gen,
+                           device=hopper, dtype=torch.int32)
+    pad = torch.arange(J, device=hopper) >= counts[:, None]
+    a_data[pad] = float("nan")
+    a_idx[pad] = 12345
+    rows = t([4, 1, 5, 0, 2], torch.int32).to(hopper)
+    tol = torch.float32 if (dtype, b_dtype) == (F32, F32) else BF16
+    for N in (1, 2, 3, 4, 5, 6, 7, 8, 16, 24, 32, 40, 63):
+        flat = torch.randn((K * N + b_offset,), generator=gen, device=hopper)
+        b = flat.to(b_dtype)[b_offset:].view(K, N)
+        out = torch.full((5 * mb * 32, N), float("nan"), device=hopper)
+        bcsr_matmul(a_data, a_idx, b, rows, mb=mb, counts=counts, out=out)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all(), N
+        close(out, bcsr_matmul_plain(a_data, a_idx, b, rows, mb=mb,
+                                     counts=counts), tol)
+
+
+def test_bcsr_matmul_counts_launches_by_layout(hopper):
+    """A narrow call (N < 64) adds one to ``narrow_launches``, a wide one
+    to ``wide_launches``, each beside ``launches``."""
+    rng = np.random.default_rng(5)
+    a_data, a_idx, _ = pack_bcsr(block_sparse(rng, 128, 64, 32, 32, 0.5),
+                                 32, 32)
+    a_data, a_idx = t(a_data).to(hopper), t(a_idx, torch.int32).to(hopper)
+    for N, narrow, wide in ((8, 1, 0), (1, 1, 0), (63, 1, 0), (64, 0, 1)):
+        b = t(rng.standard_normal((128, N))).to(hopper)
+        before = (bcsr_matmul.launches, bcsr_matmul.narrow_launches,
+                  bcsr_matmul.wide_launches)
+        bcsr_matmul(a_data, a_idx, b)
+        assert (bcsr_matmul.launches, bcsr_matmul.narrow_launches,
+                bcsr_matmul.wide_launches) == (
+            before[0] + 1, before[1] + narrow, before[2] + wide), N
 
 
 def packed_workers(rng, n, mb, K, dtype):

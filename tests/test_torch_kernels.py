@@ -510,3 +510,36 @@ def test_launch_counters_exact_across_threads():
         sys.setswitchinterval(old)
         for fn in (bcsr_matmul, cyclic_encode, decode_matmul):
             fn.launches = saved[fn.__name__]
+
+
+def test_bcsr_matmul_splits_its_launch_count_by_layout():
+    """``bcsr_matmul``'s launches split by layout: ``count_launch`` with a
+    counter's name adds one to ``launches`` and to that counter, exact
+    from several threads at once, and a reset clears both splits."""
+    import threading
+
+    from repro_torch.kernels import _build
+
+    saved = (bcsr_matmul.launches, bcsr_matmul.narrow_launches,
+             bcsr_matmul.wide_launches)
+    try:
+        reset_launch_counts()
+        assert (bcsr_matmul.narrow_launches, bcsr_matmul.wide_launches) \
+            == (0, 0)
+        threads = [threading.Thread(target=lambda name=name: [
+            _build.count_launch(bcsr_matmul, name) for _ in range(5000)])
+            for name in ("narrow_launches", "wide_launches",
+                         "narrow_launches")]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+        assert not any(th.is_alive() for th in threads)
+        assert (bcsr_matmul.launches, bcsr_matmul.narrow_launches,
+                bcsr_matmul.wide_launches) == (15000, 10000, 5000)
+        reset_launch_counts()
+        assert (bcsr_matmul.launches, bcsr_matmul.narrow_launches,
+                bcsr_matmul.wide_launches) == (0, 0, 0)
+    finally:
+        (bcsr_matmul.launches, bcsr_matmul.narrow_launches,
+         bcsr_matmul.wide_launches) = saved
