@@ -25,13 +25,67 @@ class AttnConfig:
 
 
 @dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head latent attention (DeepSeek-V3, Kimi-K2): queries through
+    a ``q_lora_rank`` bottleneck, keys and values from one cached latent
+    of ``kv_lora_rank`` plus one rotated key of ``qk_rope_head_dim``
+    shared by every head, and YaRN-scaled RoPE frequencies."""
+
+    n_heads: int
+    q_lora_rank: int
+    kv_lora_rank: int
+    qk_nope_head_dim: int
+    qk_rope_head_dim: int
+    v_head_dim: int
+    rope_theta: float
+    # YaRN (``rope_scaling``); factor 1 is plain RoPE
+    rope_factor: float
+    rope_original_max: int
+    beta_fast: float
+    beta_slow: float
+    mscale: float
+    mscale_all_dim: float
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+
+@dataclass(frozen=True)
 class MoEConfig:
-    n_experts: int
+    n_experts: int                   # the router's width
     top_k: int
     d_expert: int                    # per-expert FFN hidden dim
     n_shared_experts: int = 0
     capacity_factor: float = 1.25
     router_jitter: float = 0.0
+    # the fields of ``SigmoidMoEConfig``, at the values every softmax
+    # router has: class attributes and not fields, so that this config's
+    # data stays the JAX package's
+    scoring = "softmax"
+    n_held = None
+    held_from = 0
+
+    @property
+    def held(self) -> int:
+        """How many experts this chip holds (all but where ``n_held``
+        says)."""
+        return self.n_experts if self.n_held is None else self.n_held
+
+
+@dataclass(frozen=True)
+class SigmoidMoEConfig(MoEConfig):
+    """DeepSeek-V3's noaux_tc routing (the port's own): the top ``top_k``
+    of sigmoid scores plus a correction bias, weights from the unbiased
+    scores normalised and scaled by ``routed_scale``; dropless.  The chip
+    holds ``n_held`` experts from ``held_from`` (None: all of them); the
+    router still routes over all ``n_experts``."""
+
+    scoring = "sigmoid"              # the type says it: not a field
+    routed_scale: float = 1.0
+    bias_init_std: float = 0.0       # the correction bias's init draw
+    n_held: int | None = None
+    held_from: int = 0
 
 
 @dataclass(frozen=True)
@@ -134,6 +188,12 @@ class ModelConfig:
     # activation checkpointing for the training path:
     #   "none" | "full" (recompute everything) | "dots" (save matmul outs)
     remat: str = "full"
+    # the fields of ``LatentModelConfig``, at the values every other
+    # config has: class attributes and not fields, so that the ten
+    # configs copied from the JAX package stay its data
+    mla = None
+    first_dense = 0
+    init_std = None
 
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
@@ -156,6 +216,8 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Approximate parameter count (embeddings + blocks)."""
+        if self.mla is not None:
+            return self._mla_param_count()
         d = self.d_model
         total = self.vocab * d * (1 if self.tie_embeddings else 2)
         per_pattern = 0
@@ -200,14 +262,55 @@ class ModelConfig:
             total += enc_layer * self.encoder.n_layers
         return int(total)
 
+    def _mla_param_count(self) -> int:
+        """Exact count of a latent-attention model's weights: embedding
+        and untied head, per layer MLA and two norms, the leading dense
+        FFNs, and per MoE layer the router (and correction bias), the
+        held experts and the shared expert."""
+        d, m = self.d_model, self.mla
+        total = self.vocab * d * (1 if self.tie_embeddings else 2) + d
+        attn = (d * m.q_lora_rank + m.q_lora_rank
+                + m.q_lora_rank * m.n_heads * m.qk_head_dim
+                + d * (m.kv_lora_rank + m.qk_rope_head_dim) + m.kv_lora_rank
+                + m.kv_lora_rank * m.n_heads
+                * (m.qk_nope_head_dim + m.v_head_dim)
+                + m.n_heads * m.v_head_dim * d + 2 * d)
+        n_dense = self.n_layers if self.moe is None else self.first_dense
+        ffn = 3 * d * self.d_ff * n_dense
+        if self.moe is not None:
+            e = self.moe
+            per = (d * e.n_experts + e.held * 3 * d * e.d_expert
+                   + e.n_shared_experts * 3 * d * e.d_expert)
+            if e.scoring == "sigmoid":
+                per += e.n_experts
+            ffn += per * (self.n_layers - self.first_dense)
+        return int(total + attn * self.n_layers + ffn)
+
     def active_param_count(self) -> int:
         """Active params per token (MoE: only top_k experts count)."""
         if self.moe is None:
             return self.param_count()
         full = self.param_count()
         d = self.d_model
+        if self.mla is not None:
+            inactive = max(self.moe.held - self.moe.top_k, 0) * 3 * d \
+                * self.moe.d_expert
+            return int(full - inactive * (self.n_layers - self.first_dense))
         inactive = (self.moe.n_experts - self.moe.top_k) * 3 * d * self.moe.d_expert
         return int(full - inactive * self.n_layers)
+
+
+@dataclass(frozen=True)
+class LatentModelConfig(ModelConfig):
+    """A model with latent attention (the port's own: Kimi-K2-Instruct):
+    ``mla`` in place of ``attn`` in every layer; the ``first_dense``
+    leading layers of an MoE model keep a dense FFN of width ``d_ff``;
+    every weight matrix and the embedding draw N(0, ``init_std``) (HF's
+    ``initializer_range``)."""
+
+    mla: MLAConfig | None = None
+    first_dense: int = 0
+    init_std: float = 0.02
 
 
 @dataclass(frozen=True)

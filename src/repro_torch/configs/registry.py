@@ -1,4 +1,7 @@
-"""--arch registry: assigned architectures (+ the paper's own edge config)."""
+"""--arch registry: assigned architectures (+ the paper's own edge config).
+
+The first ten are the JAX package's table entries; ``kimi-k2-instruct``
+is the port's own (the published Kimi-K2-Instruct, latent attention)."""
 
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ _MODULES = {
     "phi-3-vision-4.2b": "phi3_vision_4_2b",
     "granite-moe-1b-a400m": "granite_moe_1b",
     "kimi-k2-1t-a32b": "kimi_k2_1t",
+    "kimi-k2-instruct": "kimi_k2_instruct",
 }
 
 ARCH_IDS = tuple(_MODULES)

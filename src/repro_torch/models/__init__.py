@@ -7,5 +7,5 @@ from .api import (  # noqa: F401
     supports_shape,
     train_batch_specs,
 )
-from .transformer import TransformerLM  # noqa: F401
+from .transformer import TransformerLM, join_caches  # noqa: F401
 from .whisper import WhisperLM  # noqa: F401

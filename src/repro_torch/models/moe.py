@@ -22,6 +22,14 @@ The counterpart of ``repro.models.moe``:
 with functional collectives), which ``moe_apply`` takes when an
 expert-parallel context is set (``repro_torch.parallel.ctx``).
 
+``moe_block_held`` is DeepSeek-V3's noaux_tc layer (``scoring ==
+"sigmoid"``): top-k of sigmoid scores plus a correction bias over the
+router's ``n_experts``, weights from the unbiased scores, normalised and
+scaled; dropless; only the ``n_held`` experts from ``held_from`` are
+computed here (one chip of an expert-parallel deployment, with no
+exchange), the shared expert once.  It shares nothing with the softmax
+path's routing, dispatch or combine.
+
 ``CodedMoE`` runs every expert weight matmul through a compiled
 ``repro_torch.api.CodedPlan``: on the card (``backend="auto"`` resolves
 to ``cuda``) each plan's compile is one ``cyclic_encode`` and each
@@ -36,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import MoEConfig
+from ..obs.trace import scope
 from ..parallel.ctx import (
     all_gather,
     ep_context,
@@ -49,11 +58,15 @@ from .layers import normal_
 
 
 def moe_param_shapes(d_model: int, moe: MoEConfig) -> dict:
-    """name -> shape; ``router`` is always f32, ``shared`` a nested dict
-    when the config has shared experts."""
-    e, h = moe.n_experts, moe.d_expert
-    shapes = {"router": (d_model, e), "w_gate": (e, d_model, h),
-              "w_up": (e, d_model, h), "w_down": (e, h, d_model)}
+    """name -> shape; ``router`` (and sigmoid routing's correction
+    ``bias``) always f32, ``shared`` a nested dict when the config has
+    shared experts.  The router spans all ``n_experts``; the expert
+    weights only the held ones."""
+    e, h, held = moe.n_experts, moe.d_expert, moe.held
+    shapes = {"router": (d_model, e), "w_gate": (held, d_model, h),
+              "w_up": (held, d_model, h), "w_down": (held, h, d_model)}
+    if moe.scoring == "sigmoid":
+        shapes["bias"] = (e,)
     if moe.n_shared_experts:
         hs = moe.n_shared_experts * h
         shapes["shared"] = {"w_gate": (d_model, hs), "w_up": (d_model, hs),
@@ -62,11 +75,15 @@ def moe_param_shapes(d_model: int, moe: MoEConfig) -> dict:
 
 
 def init_moe_params(p: dict, d_model: int, moe: MoEConfig,
-                    gen: torch.Generator) -> dict:
+                    gen: torch.Generator, std: float | None = None) -> dict:
     """Draw an MoE layer's weights into the tensors of ``p`` with the
     reference's scales: 1/sqrt(d_model) into the experts and the router,
-    1/sqrt(d_expert) out (the shared experts' too)."""
+    1/sqrt(d_expert) out (the shared experts' too); every matrix N(0,
+    std) when ``std`` is given.  A correction bias is drawn N(0,
+    ``bias_init_std``) last."""
     si, so = d_model ** -0.5, moe.d_expert ** -0.5
+    if std is not None:
+        si = so = std
     normal_(p["router"], si, gen)
     for name in ("w_gate", "w_up"):
         normal_(p[name], si, gen)
@@ -76,6 +93,8 @@ def init_moe_params(p: dict, d_model: int, moe: MoEConfig,
         normal_(sp["w_gate"], si, gen)
         normal_(sp["w_up"], si, gen)
         normal_(sp["w_down"], so, gen)
+    if "bias" in p:
+        normal_(p["bias"], moe.bias_init_std, gen)
     return p
 
 
@@ -306,9 +325,122 @@ def moe_block_ep(p: dict, x: torch.Tensor, moe: MoEConfig, mesh,
     return out, aux
 
 
-def moe_apply(p: dict, x: torch.Tensor, moe: MoEConfig):
-    """Dispatch to the EP path when an expert-parallel context is set."""
+# ---------------------------------------------------------------------------
+# Sigmoid (noaux_tc) routing over held experts, dropless
+# ---------------------------------------------------------------------------
+
+
+def route_sigmoid(router: torch.Tensor, bias: torch.Tensor,
+                  tokens: torch.Tensor, moe: MoEConfig):
+    """DeepSeek-V3's noaux_tc with one group: logits in full f32, scores =
+    sigmoid(logits), the top ``top_k`` of scores + bias, weights = the
+    unbiased scores there / (their sum + 1e-20) x ``routed_scale``.
+    -> (weights (t, k) f32, experts (t, k) int64)."""
+    with _full_f32():
+        logits = tokens.float() @ router.float()
+    scores = torch.sigmoid(logits)
+    top_e = torch.topk(scores + bias.float(), moe.top_k, dim=-1).indices
+    w = scores.gather(1, top_e)
+    w = w / (w.sum(-1, keepdim=True) + 1e-20) * moe.routed_scale
+    return w, top_e
+
+
+def _decoding(x: torch.Tensor) -> bool:
+    """One token per row: a decode step, whose host must not wait for the
+    card, so every held expert runs over every token (``_held_dense``:
+    held x t rows, ~8 x 1024 for ~171 chosen slots at the decode cell's
+    batch).  A prompt takes only the chosen slots (``_held_gathered``),
+    sized by one host read of the held counts."""
+    return x.shape[1] == 1
+
+
+def _held_dense(p: dict, tokens, w, key, held: int) -> torch.Tensor:
+    """Every held expert over every token; each product weighted by the
+    token's routing weight there, 0 where it did not choose it; summed in
+    f32 -> (t, d)."""
+    t = tokens.shape[0]
+    cw = torch.zeros((t, held + 1), dtype=torch.float32,
+                     device=tokens.device)
+    cw.scatter_(1, key, w)        # column ``held`` takes the slots not here
+    ye = torch.matmul(F.silu(torch.matmul(tokens, p["w_gate"]))
+                      * torch.matmul(tokens, p["w_up"]), p["w_down"])
+    return (ye.float() * cw[:, :held].t()[:, :, None]).sum(0)
+
+
+def _held_gathered(p: dict, tokens, w, key, per, moe) -> torch.Tensor:
+    """Only the chosen slots of the held experts, gathered in expert order
+    and each expert's padded to the most any holds (one host read sizes
+    them): one batched product per weight -> (t, d) f32."""
+    t, d = tokens.shape
+    held = moe.held
+    sizes = per[:held].tolist()
+    n, m = sum(sizes), max(sizes)
+    out = torch.zeros((t, d), dtype=torch.float32, device=tokens.device)
+    if not n:
+        return out
+    slots = torch.argsort(key, stable=True)[:n]
+    rows = torch.div(slots, moe.top_k, rounding_mode="floor")
+    grp = key[slots]
+    first = torch.cumsum(per, 0) - per
+    dest = grp * m + torch.arange(n, device=tokens.device) - first[grp]
+    xe = tokens.new_zeros((held * m, d))
+    xe[dest] = tokens[rows]
+    xe = xe.view(held, m, d)
+    ye = torch.bmm(F.silu(torch.bmm(xe, p["w_gate"]))
+                   * torch.bmm(xe, p["w_up"]), p["w_down"])
+    y = ye.view(held * m, d)[dest].float() * w.reshape(-1)[slots, None]
+    return out.index_add_(0, rows, y)
+
+
+def moe_block_held(p: dict, x: torch.Tensor, moe: MoEConfig,
+                   counts: torch.Tensor | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, d) -> (out, aux = 0).  Routes every token over all
+    ``n_experts``; computes each chosen slot of a held expert (no
+    capacity: nothing drops), weighted and summed per token in f32, then
+    adds the shared expert once: ``_held_dense`` in a decode step,
+    ``_held_gathered`` over a prompt (``_decoding``).  The
+    held experts' slot counts, when ``counts`` (n_held,) is given, are
+    added into it on the device."""
+    b, s, d = x.shape
+    t = b * s
+    held, e0 = moe.held, moe.held_from
+    tokens = x.reshape(t, d)
+    with scope("moe.route"):
+        w, top_e = route_sigmoid(p["router"], p["bias"], tokens, moe)
+        local = top_e.reshape(-1) - e0
+        mine = (local >= 0) & (local < held)
+        key = torch.where(mine, local, held)
+        per = torch.zeros(held + 1, dtype=torch.long, device=x.device)
+        per.scatter_add_(0, key, torch.ones_like(key))
+        if counts is not None:
+            counts.add_(per[:held])
+    with scope("moe.experts"):
+        if _decoding(x):
+            out = _held_dense(p, tokens, w, key.view(t, -1), held)
+        else:
+            out = _held_gathered(p, tokens, w, key, per, moe)
+    with scope("moe.shared"):
+        y = out.to(x.dtype)
+        if moe.n_shared_experts:
+            sp = p["shared"]
+            y = y + (F.silu(tokens @ sp["w_gate"]) * (tokens @ sp["w_up"])) \
+                @ sp["w_down"]
+    return y.reshape(b, s, d), torch.zeros((), dtype=torch.float32,
+                                           device=x.device)
+
+
+def moe_apply(p: dict, x: torch.Tensor, moe: MoEConfig,
+              counts: torch.Tensor | None = None):
+    """Dispatch to the EP path when an expert-parallel context is set;
+    sigmoid routing takes ``moe_block_held`` (``counts``: its held-slot
+    counter), which has no expert-parallel form on a mesh."""
     ep = ep_context()
+    if moe.scoring == "sigmoid":
+        if ep is not None:
+            raise NotImplementedError(
+                "sigmoid routing over held experts has no mesh path")
+        return moe_block_held(p, x, moe, counts)
     if ep is not None:
         mesh, dp, model_axis = ep
         return moe_block_ep(p, x, moe, mesh, dp, model_axis)

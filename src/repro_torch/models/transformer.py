@@ -32,9 +32,15 @@ under ``torch.inference_mode``.  The trainer turns grad on
 is enabled, ``forward`` checkpoints each layer as ``cfg.remat`` says
 (the reference's ``_maybe_remat``).
 
+A config with ``cfg.mla`` has latent attention (``models/mla.py``) in
+every attention layer: the expanded form over whole sequences, the
+absorbed form in ``decode_step``.  ``cfg.first_dense`` leading layers of
+an MoE config keep a dense FFN of width ``d_ff``.
+
 Serving state is a dict ``{"layers": [per-layer cache], "step": int}``:
-``{"k", "v"}`` for an attention layer, ``{"conv", "state"}`` for a
-mamba layer.  ``step`` is a host int, so a decode step needs no
+``{"k", "v"}`` for an attention layer, ``{"c", "kr"}`` (the latent and
+the rotated key) for a latent-attention layer, ``{"conv", "state"}`` for
+a mamba layer.  ``step`` is a host int, so a decode step needs no
 device-to-host copy, and ``decode_step`` writes the cache tensors in
 place.
 """
@@ -49,6 +55,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .._device import as_tensor, resolve_device
 from ..configs.base import ModelConfig
+from ..obs.trace import scope
 from ..parallel.ctx import reshape, shard
 from .layers import (
     _project_qkv,
@@ -74,6 +81,13 @@ from .mamba2 import (
     mamba_decode_step,
     mamba_param_shapes,
     mamba_prefill,
+)
+from .mla import (
+    init_latent_cache,
+    init_mla_params,
+    mla_decode,
+    mla_param_shapes,
+    mla_prefill,
 )
 from .moe import init_moe_params, moe_apply, moe_param_shapes
 
@@ -141,20 +155,30 @@ def _vector(d: int, dtype, device) -> nn.Parameter:
 
 
 class Block(nn.Module):
-    """One attention layer: pre-norm attention, then a pre-norm FFN
-    (``moe`` for an MoE config's A/L/G layers, else ``mlp``)."""
+    """One attention layer: pre-norm attention (latent attention with
+    ``cfg.mla``), then a pre-norm FFN (``moe`` for an MoE config's A/L/G
+    layers but the ``dense`` leading ones, else ``mlp``).  A sigmoid-
+    routed ``moe`` keeps ``held_tokens``, the slots routed to each held
+    expert, summed on the device (not in the state dict)."""
 
-    def __init__(self, cfg: ModelConfig, kind: str, dtype, device):
+    def __init__(self, cfg: ModelConfig, kind: str, dtype, device,
+                 dense: bool = False):
         super().__init__()
         d = cfg.d_model
         self.kind = kind
         self.window = cfg.attn.window if kind == "L" else None
         self.norm1 = _vector(d, dtype, device)
         self.norm2 = _vector(d, dtype, device)
-        self.attn = _params(attn_param_shapes(d, cfg.attn), dtype, device)
-        if cfg.moe is not None and kind != "S":
+        shapes = mla_param_shapes(d, cfg.mla) if cfg.mla is not None \
+            else attn_param_shapes(d, cfg.attn)
+        self.attn = _params(shapes, dtype, device)
+        if cfg.moe is not None and kind != "S" and not dense:
             self.moe = _params(moe_param_shapes(d, cfg.moe), dtype, device,
-                               f32=("router",))
+                               f32=("router", "bias"))
+            if cfg.moe.scoring == "sigmoid":
+                self.register_buffer("held_tokens", torch.zeros(
+                    cfg.moe.held, dtype=torch.long, device=device),
+                    persistent=False)
         else:
             self.mlp = _params(mlp_param_shapes(d, cfg.d_ff, cfg.act), dtype,
                                device)
@@ -163,9 +187,16 @@ class Block(nn.Module):
     def init(self, cfg: ModelConfig, gen: torch.Generator) -> None:
         self.norm1.fill_(1.0)
         self.norm2.fill_(1.0)
-        init_attn_params(self.attn, cfg.d_model, cfg.attn, gen)
+        std = cfg.init_std
+        if cfg.mla is not None:
+            init_mla_params(self.attn, std, gen)
+        else:
+            init_attn_params(self.attn, cfg.d_model, cfg.attn, gen)
         if hasattr(self, "moe"):
-            init_moe_params(self.moe, cfg.d_model, cfg.moe, gen)
+            init_moe_params(self.moe, cfg.d_model, cfg.moe, gen, std)
+        elif std is not None:
+            for w in self.mlp.values():
+                normal_(w, std, gen)
         else:
             init_mlp_params(self.mlp, cfg.d_model, cfg.d_ff, cfg.act, gen)
 
@@ -209,7 +240,8 @@ class TransformerLM(nn.Module):
             torch.empty((cfg.vocab, cfg.d_model), dtype=dtype, device=dev),
             requires_grad=False)
         self.layers = nn.ModuleList(
-            self._make(cfg, cfg.pattern[i % len(cfg.pattern)], dtype, dev)
+            self._make(cfg, cfg.pattern[i % len(cfg.pattern)], dtype, dev,
+                       dense=i < cfg.first_dense)
             for i in range(cfg.n_groups * len(cfg.pattern)))
         if "S" in cfg.pattern:
             self.shared = Block(cfg, "S", dtype, dev)
@@ -220,12 +252,13 @@ class TransformerLM(nn.Module):
                             device=dev), requires_grad=False)
 
     @staticmethod
-    def _make(cfg: ModelConfig, kind: str, dtype, device) -> nn.Module:
+    def _make(cfg: ModelConfig, kind: str, dtype, device,
+              dense: bool = False) -> nn.Module:
         if kind == "M":
             return MambaBlock(cfg, dtype, device)
         if kind == "S":
             return SharedSlot()
-        return Block(cfg, kind, dtype, device)
+        return Block(cfg, kind, dtype, device, dense=dense)
 
     @property
     def device(self) -> torch.device:
@@ -245,7 +278,7 @@ class TransformerLM(nn.Module):
         and return the state dict.  The bits differ from
         ``jax.random``'s; parity goes through ``repro_torch.convert``."""
         cfg = self.cfg
-        normal_(self.embed, 0.02, gen)
+        normal_(self.embed, cfg.init_std or 0.02, gen)
         for blk in self.layers:
             if blk.kind != "S":
                 blk.init(cfg, gen)
@@ -253,7 +286,7 @@ class TransformerLM(nn.Module):
             self.shared.init(cfg, gen)
         self.final_norm.fill_(1.0)
         if not cfg.tie_embeddings:
-            normal_(self.head, 0.02, gen)
+            normal_(self.head, cfg.init_std or 0.02, gen)
         return self.state_dict()
 
     # -------------------- forward --------------------
@@ -267,16 +300,19 @@ class TransformerLM(nn.Module):
         return x
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
-        head = self.embed.T if self.cfg.tie_embeddings else self.head
-        return shard("logits", torch.einsum("bsd,dv->bsv", x, head).float())
+        with scope("model.head"):
+            x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
+            head = self.embed.T if self.cfg.tie_embeddings else self.head
+            return shard("logits",
+                         torch.einsum("bsd,dv->bsv", x, head).float())
 
     def _ffn(self, blk: Block, x: torch.Tensor):
         """Pre-norm FFN residual -> (x, aux)."""
         cfg = self.cfg
         h = rms_norm(x, blk.norm2, cfg.norm_eps)
         if hasattr(blk, "moe"):
-            y, aux = moe_apply(blk.moe, h, cfg.moe)
+            y, aux = moe_apply(blk.moe, h, cfg.moe,
+                               getattr(blk, "held_tokens", None))
             return x + y, aux
         return x + mlp_block(blk.mlp, h, cfg.act), None
 
@@ -288,12 +324,18 @@ class TransformerLM(nn.Module):
         cfg = self.cfg
         b, s, _ = x.shape
         h = rms_norm(x, blk.norm1, cfg.norm_eps)
-        positions = torch.arange(s, device=x.device)[None, :]
-        q, k, v = _project_qkv(blk.attn, h, cfg.attn, positions, cfg.norm_eps)
-        o = self_attention(q, k, v, causal=causal, window=blk.window,
-                           impl=cfg.attn_impl, chunk=cfg.attn_chunk)
-        x = x + torch.einsum("bse,ed->bsd", reshape(o, b, s, -1),
+        if cfg.mla is not None:
+            # latent attention: (k, v) are the latent and the rotated key
+            y, k, v = mla_prefill(blk.attn, h, cfg.mla, eps=cfg.norm_eps)
+        else:
+            positions = torch.arange(s, device=x.device)[None, :]
+            q, k, v = _project_qkv(blk.attn, h, cfg.attn, positions,
+                                   cfg.norm_eps)
+            o = self_attention(q, k, v, causal=causal, window=blk.window,
+                               impl=cfg.attn_impl, chunk=cfg.attn_chunk)
+            y = torch.einsum("bse,ed->bsd", reshape(o, b, s, -1),
                              blk.attn["wo"])
+        x = x + y
         if cut:
             x = shard("resid", x)
         x, aux = self._ffn(blk, x)
@@ -306,7 +348,8 @@ class TransformerLM(nn.Module):
             return x + mamba_block(blk.mamba,
                                    rms_norm(x, blk.norm, cfg.norm_eps),
                                    cfg.ssm, eps=cfg.norm_eps), None
-        x, _, _, a = self._layer(blk, x, cfg.attn.causal, cut=True)
+        causal = cfg.mla is not None or cfg.attn.causal  # MLA: always
+        x, _, _, a = self._layer(blk, x, causal, cut=True)
         return shard("resid", x), a
 
     def forward(self, tokens, image_embeds=None
@@ -342,6 +385,9 @@ class TransformerLM(nn.Module):
             if blk.kind == "M":
                 caches.append(init_mamba_cache(batch, cfg.d_model, cfg.ssm,
                                                self.dtype, self.device))
+            elif cfg.mla is not None:
+                caches.append(init_latent_cache(batch, max_len, cfg.mla,
+                                                self.dtype, self.device))
             else:
                 caches.append(init_kv_cache(batch, max_len, cfg.attn,
                                             blk.window, self.dtype,
@@ -355,6 +401,10 @@ class TransformerLM(nn.Module):
         layers keep the last W keys in ring order, as the reference lays
         them out; mamba layers keep the last ``d_conv - 1`` conv inputs
         and the final SSD state."""
+        with scope("model.prefill"):
+            return self._prefill(tokens, max_len, image_embeds)
+
+    def _prefill(self, tokens, max_len: int, image_embeds=None):
         cfg = self.cfg
         x = shard("resid", self._embed(tokens, image_embeds))
         b, s, _ = x.shape
@@ -368,6 +418,10 @@ class TransformerLM(nn.Module):
                 caches.append(c)
                 continue
             x, kk, vv, _ = self._layer(blk, x, causal=True)
+            if cfg.mla is not None:
+                caches.append({"c": prefix_cache(kk, max_len, self.dtype),
+                               "kr": prefix_cache(vv, max_len, self.dtype)})
+                continue
             window = blk.window
             length = min(window, max_len) if window else max_len
             if window and s > length:
@@ -384,6 +438,10 @@ class TransformerLM(nn.Module):
     def decode_step(self, cache: dict, tokens) -> tuple[torch.Tensor, dict]:
         """One-token step.  tokens (B, 1) -> (logits (B, V), cache); the
         cache is advanced in place and returned."""
+        with scope("model.decode_step"):
+            return self._decode_step(cache, tokens)
+
+    def _decode_step(self, cache: dict, tokens):
         cfg = self.cfg
         x = self._embed(tokens)
         step = cache["step"]
@@ -395,8 +453,43 @@ class TransformerLM(nn.Module):
                 x = x + y
                 continue
             h = rms_norm(x, blk.norm1, cfg.norm_eps)
-            y, _ = attention_decode(blk.attn, h, c, step, cfg.attn,
-                                    eps=cfg.norm_eps, window=blk.window)
+            if cfg.mla is not None:
+                y = mla_decode(blk.attn, h, c, step, cfg.mla,
+                               eps=cfg.norm_eps)
+            else:
+                y, _ = attention_decode(blk.attn, h, c, step, cfg.attn,
+                                        eps=cfg.norm_eps, window=blk.window)
             x, _ = self._ffn(blk, x + y)
         logits = self._logits(x)
         return logits[:, 0], {"layers": cache["layers"], "step": step + 1}
+
+
+def join_caches(parts: list[dict], max_len: int) -> dict:
+    """Latent caches ``{c, kr}`` of the same model and position, one per
+    group of rows, joined along the batch into one of ``max_len``
+    positions: the positions before ``step`` are copied, the rest are
+    zeros."""
+    if not parts:
+        raise ValueError("no caches to join")
+    step = parts[0]["step"]
+    if any(p["step"] != step for p in parts):
+        raise ValueError(f"caches at different positions: "
+                         f"{[p['step'] for p in parts]}")
+    if max_len < step:
+        raise ValueError(f"max_len {max_len} < position {step}")
+    layers = []
+    for i, first in enumerate(parts[0]["layers"]):
+        if set(first) != {"c", "kr"}:
+            raise ValueError(f"layer {i} holds no latent cache")
+        joined = {}
+        for name, t in first.items():
+            rows = [p["layers"][i][name] for p in parts]
+            out = t.new_zeros((sum(r.shape[0] for r in rows), max_len,
+                               t.shape[2]))
+            at = 0
+            for r in rows:
+                out[at:at + r.shape[0], :step] = r[:, :step]
+                at += r.shape[0]
+            joined[name] = out
+        layers.append(joined)
+    return {"layers": layers, "step": step}

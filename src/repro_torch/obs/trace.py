@@ -9,7 +9,8 @@ the port.  It has two sinks:
   scope opens a ``RecordFunctionFast`` range under its name: a host op
   in the profiler's own trace, on its clock, so the device trace's idle
   gaps can be named by the program's code (``bench/devtrace.py``).
-  ``PROGRAM_SPANS`` lists the names.
+  ``PROGRAM_SPANS`` lists the plan API's names, ``MODEL_SPANS`` the
+  model's.
 - **The ring buffer.**  A scope given a tracer also records one complete
   span there, exactly as ``Tracer.span`` does.  Per-call ranges
   (``plan.matvec``, ``decode_cache.plan``, ``kernel.*``, ...) are never
@@ -67,6 +68,17 @@ PROGRAM_SPANS = (
     "decode_cache.plan", "decode_cache.miss",
     "kernel.bcsr_matmul", "kernel.cyclic_encode",
     "kernel.decode_matmul", "kernel.decode_matmul.prepare",
+)
+
+# the model's ranges, opened the same way: a prefill and a decode step
+# of ``TransformerLM``, latent attention's two forms, the sigmoid-routed
+# MoE's routing, held experts and shared expert, and the LM head.  Kept
+# apart from ``PROGRAM_SPANS``: the plan API's idle share reads those
+# names alone
+MODEL_SPANS = (
+    "model.prefill", "model.decode_step", "model.head",
+    "mla.prefill", "mla.decode",
+    "moe.route", "moe.experts", "moe.shared",
 )
 
 

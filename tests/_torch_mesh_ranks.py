@@ -228,7 +228,8 @@ def case_models(rank: int, d: Path) -> dict:
 def case_specs(d: Path) -> dict:
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
-    from repro_torch.configs import ARCH_IDS, SHAPES, get_config
+    from repro.configs import ARCH_IDS
+    from repro_torch.configs import SHAPES, get_config
     from repro_torch.models import (
         build_model,
         decode_specs,

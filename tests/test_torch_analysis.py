@@ -1,6 +1,7 @@
 """The port's analytic FLOP / HBM-byte model (``repro_torch.analysis.
 flops``) against the JAX package's: every count equal, exactly, for
-every arch x shape of the registry, with 1 and 4 microbatches and on 1
+every arch x shape of the JAX package's registry (the port's own
+archs have no reference to equal), with 1 and 4 microbatches and on 1
 and 256 devices."""
 
 import itertools
@@ -13,7 +14,7 @@ import repro_torch.analysis.flops as port_flops
 import repro_torch.configs as port_configs
 from repro_torch.configs.base import SHAPES
 
-CELLS = list(itertools.product(port_configs.ARCH_IDS, sorted(SHAPES)))
+CELLS = list(itertools.product(ref_configs.ARCH_IDS, sorted(SHAPES)))
 
 
 def configs(arch, shape):

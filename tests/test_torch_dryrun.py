@@ -22,9 +22,10 @@ from pathlib import Path
 import pytest
 
 import repro.analysis.roofline as ref_roofline
+import repro.configs as ref_configs
 import repro_torch.analysis.roofline as roofline
 from repro_torch.analysis.flops import cell_flops, cell_hbm_bytes
-from repro_torch.configs import ARCH_IDS, SHAPES, get_config, get_smoke_config
+from repro_torch.configs import SHAPES, get_config, get_smoke_config
 from repro_torch.launch import mesh as port_mesh
 from repro_torch.models import supports_shape
 
@@ -113,7 +114,7 @@ def _jobs(d: Path) -> dict:
                   "--arch", "whisper-tiny", "--shape", "decode_32k",
                   "--smoke", "--out", str(d / "error")],
     }
-    for arch in ARCH_IDS:
+    for arch in ref_configs.ARCH_IDS:
         if arch not in CELL_BY_CELL:
             jobs[("smoke", arch)] = _command(d / "smoke" / arch, "--arch",
                                              arch, "--all", "--smoke")
@@ -220,7 +221,7 @@ def test_all_shapes_of_one_arch_write_one_artifact_each(runs):
     assert "4 cells, 0 failures" in out
 
 
-@pytest.mark.parametrize("arch", ARCH_IDS)
+@pytest.mark.parametrize("arch", ref_configs.ARCH_IDS)
 def test_every_smoke_cell_builds(runs, arch):
     """Every shape the arch's ``supports_shape`` allows traces ``ok`` on
     the production mesh at smoke width (kimi on its default MoE path, no

@@ -36,7 +36,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import ARCH_IDS, get_smoke_config
+import repro.configs as ref_configs
+from repro_torch.configs import get_smoke_config
 from repro_torch.configs import get_config as port_config
 from repro_torch.convert import model_params_from_reference
 from repro_torch.models import build_model
@@ -256,7 +257,7 @@ MESHES = ("2x4", "32x8")
 
 @pytest.mark.parametrize("mesh", MESHES)
 @pytest.mark.parametrize("kind", ("param", "zero1"))
-@pytest.mark.parametrize("arch", ARCH_IDS)
+@pytest.mark.parametrize("arch", ref_configs.ARCH_IDS)
 def test_leaf_specs_equal_the_reference(mesh_runs, arch, kind, mesh):
     """Each port leaf gets its reference leaf's spec, the stacked group
     axis dropped, and every sharded dim divides."""
@@ -327,7 +328,7 @@ def test_shard_hook_is_the_identity_outside_a_mesh():
     assert seen == ["resid"] and shard("resid", x) is x
 
 
-@pytest.mark.parametrize("arch", ARCH_IDS)
+@pytest.mark.parametrize("arch", ref_configs.ARCH_IDS)
 def test_forward_bitwise_with_an_identity_sharder(arch):
     """Every smoke arch's forward (and, but for audio, a prefill and one
     decode step) is bitwise with and without an installed sharder that

@@ -472,3 +472,69 @@ def test_reencode_cut_follows_observed_rates(operand):
                                    **LOOSE)
     assert wait_until(lambda: not [t for t in threading.enumerate()
                                    if t.name.startswith("coded-fleet")])
+
+
+# ---------------------------------------------------------------------------
+# the model's ranges and the held-expert counter
+# ---------------------------------------------------------------------------
+
+
+def _latent_model(all_held: bool = False):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    cfg = get_smoke_config("kimi-k2-instruct")
+    if all_held:
+        cfg = cfg.with_(moe=dataclasses.replace(cfg.moe, n_held=None))
+    model = build_model(cfg, torch.float32, device="cpu")
+    model.init(torch.Generator().manual_seed(0))
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (3, 9)))
+    return cfg, model, toks
+
+
+def test_a_decode_step_opens_every_model_range():
+    """Under a profiler a prefill opens ``model.prefill``, ``mla.prefill``
+    and the MoE's ranges inside it; a decode step opens
+    ``model.decode_step`` enclosing ``mla.decode``, ``moe.route``,
+    ``moe.experts``, ``moe.shared`` and ``model.head``: every name of
+    ``MODEL_SPANS`` between the two, each a plain host op."""
+    _, model, toks = _latent_model()
+    with torch.inference_mode():
+        pre, (_, cache) = profiled(lambda: model.prefill(toks[:, :8], 16))
+        dec, _ = profiled(lambda: model.decode_step(cache, toks[:, 8:9]))
+    spans = set(trace_mod.MODEL_SPANS)
+    for events, outer, layers in ((pre, "model.prefill", "mla.prefill"),
+                                  (dec, "model.decode_step", "mla.decode")):
+        ranges = [e for e in events if e[0] in spans]
+        top = [e for e in ranges if e[0] == outer]
+        assert len(top) == 1
+        names = {e[0] for e in ranges}
+        assert {layers, "moe.route", "moe.experts", "moe.shared",
+                "model.head"} <= names
+        assert all(inside(e, top[0]) for e in ranges)
+        assert not any(e[3] for e in ranges)
+    seen = {e[0] for e in pre + dec}
+    assert spans <= seen
+    assert not spans & set(trace_mod.PROGRAM_SPANS)
+
+
+def test_held_counter_counts_every_routed_slot():
+    """With every expert held, a decode step of 3 rows adds 3 x top_k to
+    each MoE layer's counter; a dense layer has none."""
+    cfg, model, toks = _latent_model(all_held=True)
+    with torch.inference_mode():
+        _, cache = model.prefill(toks[:, :8], 16)
+        before = [blk.held_tokens.clone() for blk in model.layers[1:]]
+        model.decode_step(cache, toks[:, 8:9])
+    assert not hasattr(model.layers[0], "held_tokens")
+    for blk, was in zip(model.layers[1:], before):
+        assert int((blk.held_tokens - was).sum()) == 3 * cfg.moe.top_k
+        assert blk.held_tokens.device == model.device
+        assert not any(k.endswith("held_tokens")
+                       for k in model.state_dict())
+
+
+def test_model_scopes_are_the_shared_no_op_untraced(monkeypatch):
+    monkeypatch.delenv("REPRO_TRACE", raising=False)
+    for name in trace_mod.MODEL_SPANS:
+        assert trace_mod.scope(name) is trace_mod.NO_SPAN
