@@ -7,8 +7,23 @@ Phases, one JSON line each:
 
   0. device -- the card's name and power limit (``nvidia-smi``) and its
      compute capability;
-  1. build  -- the three CUDA kernels built from ``src/repro_torch/
+  1. build  -- the four CUDA kernels built from ``src/repro_torch/
      kernels/csrc`` (or loaded from ``build/repro_torch/``);
+  1b. mla   -- ``mla_decode_attention`` (latent attention's absorbed
+     decode) at the Kimi-K2 decode cell's shape, 1024 sessions of 64
+     heads over 2,200 cached positions of a 3,072-position buffer, and
+     at 133, 8 and 1 sessions: held, with its plain version, against
+     attention in f64, where its largest error must be at most 1.1x the
+     plain chain's; its time, the plain version's and the least time by
+     bytes;
+  1c. mla step -- the decode cell's model on its main path: kimi-k2-
+     instruct at published widths cut to 5 layers and 8 held experts,
+     bf16, 1024 sessions at position 2,199 of a 3,072-position latent
+     cache (32 prefilled prompts, each cache repeated 32 times): three
+     ``decode_step``s launch the kernel once a layer and nothing else,
+     and the first step's logits are held against the same step through
+     the plain chain by the cell's measure and limits; the step's time,
+     and the plain chain's;
   3. mv     -- the coded LM head of phi3-mini-3.8b: ``compile_plan`` over
      a random (3072, 32064) head with ``CodedConfig``'s defaults (n=16
      workers, s=2 stragglers, Alg. 1), then ``plan.matvec`` for a decode
@@ -271,6 +286,8 @@ from repro_torch.kernels import (  # noqa: E402
     decode_matmul,
     decode_matmul_plain,
     launch_counts,
+    mla_decode_attention,
+    mla_decode_attention_plain,
     reset_launch_counts,
 )
 from repro_torch.kernels.decode_matmul import (  # noqa: E402
@@ -288,9 +305,10 @@ from repro_torch.optim import (  # noqa: E402
     apply_updates,
 )
 from repro_torch.train import TrainConfig, Trainer  # noqa: E402
+import repro_torch.models.mla as mla_module  # noqa: E402
 import repro_torch.models.moe as moe_module  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
-from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import build_model, join_caches  # noqa: E402
 from repro_torch.models.moe import CodedMoE, moe_block  # noqa: E402
 from repro_torch.obs import attribute  # noqa: E402
 from repro_torch.parallel import CodedAggregator, expert_parallel  # noqa: E402
@@ -321,6 +339,7 @@ TRACE_NAMES = {
     "bcsr_matmul": ("bcsr_narrow_kernel", "bcsr_wide_kernel"),
     "cyclic_encode": ("cyclic_encode_kernel",),
     "decode_matmul": ("decode_rows_kernel", "decode_transposed_kernel"),
+    "mla_decode_attention": ("mla_decode_kernel",),
 }
 
 SOURCES = {
@@ -577,9 +596,157 @@ def expect_between(where: str, counts: dict, **bounds) -> None:
 
 
 def expect_counts(where: str, counts: dict, **want) -> None:
+    """Every count as named; a kernel left unnamed must not have run."""
+    want = {**dict.fromkeys(counts, 0), **want}
     if counts != want:
         raise AssertionError(f"{where}: launch counts {counts}, expected "
                              f"{want}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 1b: latent attention's absorbed decode
+# ---------------------------------------------------------------------------
+
+# the decode cell's sessions, and fewer; its positions mid-window, in its
+# buffer; Kimi-K2's heads, latent and rotated widths, and softmax scale
+MLA_SESSIONS = (1024, 133, 8, 1)
+MLA_LENGTH, MLA_BUFFER = 2200, 3072
+MLA_HEADS, MLA_LATENT, MLA_ROPE = 64, 512, 64
+MLA_SCALE = 0.13086
+
+
+def mla_expanded(q_hat, q_pe, c, kr, length, scale, chunk=64):
+    """Attention over keys [c | kr] and values c in f64, by sessions."""
+    out = []
+    for at in range(0, q_hat.shape[0], chunk):
+        q = torch.cat([q_hat[at:at + chunk], q_pe[at:at + chunk]], -1)
+        k = torch.cat([c[at:at + chunk, :length], kr[at:at + chunk, :length]],
+                      -1)
+        w = torch.softmax(scale * q.double() @ k.double().transpose(1, 2), -1)
+        out.append(w @ c[at:at + chunk, :length].double())
+    return torch.cat(out)
+
+
+def phase_mla(seed: int, dev, reps: int = 20) -> list[dict]:
+    """Phase 1b -> one kernel row per session count.  The
+    plain chain rounds its scores to bf16 and the kernel keeps them in
+    f32, so the two differ by the plain chain's own error: each is held
+    against attention in f64 instead, the kernel to 1.1x the plain
+    chain's largest error, as ``tests/test_torch_cuda.py`` holds it."""
+    rows = []
+    for b in MLA_SESSIONS:
+        gen = torch.Generator(device=dev).manual_seed(seed + b)
+        args = tuple(
+            torch.randn(shape, generator=gen, device=dev).bfloat16()
+            for shape in ((b, MLA_HEADS, MLA_LATENT), (b, MLA_HEADS, MLA_ROPE),
+                          (b, MLA_BUFFER, MLA_LATENT),
+                          (b, MLA_BUFFER, MLA_ROPE))) + (MLA_LENGTH, MLA_SCALE)
+        ref = mla_expanded(*args)
+        got = mla_decode_attention(*args)
+        plain = mla_decode_attention_plain(*args)
+        # each session's cache read once, its query read and its output
+        # written once
+        nbytes = 2 * b * (MLA_LENGTH * (MLA_LATENT + MLA_ROPE)
+                          + MLA_HEADS * (2 * MLA_LATENT + MLA_ROPE))
+        flops = 2 * b * MLA_HEADS * MLA_LENGTH * (2 * MLA_LATENT + MLA_ROPE)
+        row = {
+            "name": "mla_decode_attention", "case": f"B={b} L={MLA_LENGTH}",
+            "dtype": "bfloat16", "shape": list(got.shape),
+            "max_abs_err": float((got.double() - ref).abs().max()),
+            "plain_max_abs_err": float((plain.double() - ref).abs().max()),
+            "ms": cuda_ms(lambda: mla_decode_attention(*args), reps),
+            "plain_ms": cuda_ms(lambda: mla_decode_attention_plain(*args), 5),
+            "library_ms": None,
+        }
+        row["ok"] = row["max_abs_err"] <= 1.1 * row["plain_max_abs_err"]
+        row["bound_ms"], row["bound_by"] = bound(nbytes, flops,
+                                                 BF16_FLOPS_PER_S)
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        row["bytes"], row["flops"] = nbytes, flops
+        emit("kernels", **row)
+        if not row["ok"]:
+            raise AssertionError(f"mla_decode_attention ({row['case']}): "
+                                 f"error {row['max_abs_err']} against f64, "
+                                 f"the plain chain's "
+                                 f"{row['plain_max_abs_err']}")
+        rows.append(row)
+        del args, ref, got, plain
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 1c: the kernel on the decode cell's main path
+# ---------------------------------------------------------------------------
+
+# the decode cell's model: published widths, its layers and held experts
+MLA_ARCH, MLA_LAYERS, MLA_HELD = "kimi-k2-instruct", 5, 8
+# sessions prefilled a call, as the cell prefills them
+MLA_GROUP = 32
+# a row's largest logit difference from the plain chain's step, as a share
+# of its largest logit: the median and 90th percentile over rows, held to
+# the cell's limits on its rows' error against its reference
+MLA_STEP_LIMITS = {"median": 4e-2, "p90": 5e-2}
+
+
+def phase_mla_step(seed: int, dev, steps: int = 3, reps: int = 5
+                   ) -> tuple[dict, dict]:
+    """Phase 1c -> (the launches of ``steps`` decode steps, the step's
+    row).  Both chains read the same prefilled cache."""
+    cfg = get_config(MLA_ARCH).with_(n_layers=MLA_LAYERS)
+    cfg = cfg.with_(moe=dataclasses.replace(cfg.moe, n_held=MLA_HELD,
+                                            held_from=0))
+    model = build_model(cfg, torch.bfloat16, device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(seed))
+    b, pos = MLA_SESSIONS[0], MLA_LENGTH - 1
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    prompts = torch.randint(0, cfg.vocab, (MLA_GROUP, pos), device=dev,
+                            generator=gen)
+    toks = torch.randint(0, cfg.vocab, (b, steps), device=dev, generator=gen)
+    with torch.inference_mode():
+        part = model.prefill(prompts, pos)[1]
+        cache = join_caches([part] * (b // MLA_GROUP), MLA_BUFFER)
+    del part
+
+    def step_at(i: int) -> torch.Tensor:
+        cache["step"] = pos + i
+        return model.decode_step(cache, toks[:, i:i + 1])[0]
+
+    with torch.inference_mode():
+        real = mla_module.takes
+        mla_module.takes = lambda *route: False
+        try:
+            reset_launch_counts()
+            want = step_at(0)
+            plain_ms = cuda_ms(lambda: step_at(0), reps)
+            expect_counts("mla step (plain chain)", launch_counts())
+        finally:
+            mla_module.takes = real
+        reset_launch_counts()
+        got = step_at(0)
+        for i in range(1, steps):
+            step_at(i)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        expect_counts("mla step", counts,
+                      mla_decode_attention=steps * cfg.n_layers)
+        ms = cuda_ms(lambda: step_at(0), reps)
+    errs = ((got.float() - want.float()).abs().amax(1)
+            / want.float().abs().amax(1))
+    err = {"median": float(errs.median()),
+           "p90": float(errs.quantile(0.9)), "max": float(errs.max())}
+    row = {"case": f"{MLA_ARCH} decode_step B={b} L={pos + 1} "
+                   f"({cfg.n_layers} layers)",
+           "steps": steps, "logits_rel_err": err, "step_ms": ms,
+           "plain_step_ms": plain_ms,
+           "finite": bool(torch.isfinite(got).all())}
+    emit("mla_step", launches=counts, **row)
+    if not row["finite"] or any(err[k] > limit
+                                for k, limit in MLA_STEP_LIMITS.items()):
+        raise AssertionError(f"mla step: logits {err} from the plain "
+                             f"chain's (limits {MLA_STEP_LIMITS}), finite "
+                             f"{row['finite']}")
+    del model, cache, want, got
+    return counts, row
 
 
 # ---------------------------------------------------------------------------
@@ -1704,8 +1871,8 @@ def phase_cluster(seed: int, dev, gen, rng, serve: dict, t_dim: int = 8192,
                          for w in now}
             # one bcsr_matmul in each child that returned a task, k in all
             served = cl_pipe.last_report.completed_per_worker
-            want_child = {w: {"bcsr_matmul": served.get(w, 0),
-                              "cyclic_encode": 0, "decode_matmul": 0}
+            want_child = {w: {**dict.fromkeys(per_child[w], 0),
+                              "bcsr_matmul": served.get(w, 0)}
                           for w in now}
             if per_child != want_child or sum(
                     c["bcsr_matmul"] for c in per_child.values()) != k:
@@ -4297,6 +4464,11 @@ def main(argv=None) -> int:
     emit("build", seconds=time.perf_counter() - t0,
          cached=_build.build_info["cached"], library=_build.build_info["path"])
 
+    mla_rows = phase_mla(args.seed, dev)
+    torch.cuda.empty_cache()
+    mla_counts, mla_step = phase_mla_step(args.seed, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     rng = np.random.default_rng(args.seed)
     mv, (mv_counts,) = phase_mv(args.seed, dev, gen, rng)
@@ -4391,6 +4563,19 @@ def main(argv=None) -> int:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": row["shape"], "case": row["case"],
         })
+    # latent attention's kernel at the decode cell's shape (phase 1b),
+    # with the launches of its main path, the cell's decode steps (1c)
+    row = mla_rows[0]
+    table.append({
+        "name": "mla_decode_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mla_decode.cu",
+        "replaces": None, "launches": mla_counts["mla_decode_attention"],
+        "launches_from": f"{mla_step['steps']} x {mla_step['case']}",
+        "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": None,
+        "shape": row["shape"], "case": row["case"],
+    })
     print(json.dumps({"kernels": table}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,14 @@
-"""Hand-written Hopper (sm_90a) kernels for the coded-computation hot spots.
+"""Hand-written Hopper (sm_90a) kernels: the coded computation's hot spots
+and latent attention's decode.
 
-Three CUDA C++ kernels (``csrc/``), each with a wrapper, a launch
+Four CUDA C++ kernels (``csrc/``), each with a wrapper, a launch
 counter and a plain PyTorch version beside it:
 
   * ``bcsr_matmul``   -- block-sparse worker product C = A^T B
   * ``cyclic_encode`` -- weight-omega encoding gather/accumulate
   * ``decode_matmul`` -- fastest-k decode U = Hinv @ Y
+  * ``mla_decode_attention`` -- latent attention's absorbed decode:
+    scores over the latent cache, softmax, and the weighted sum of it
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors
 it launches the kernel (built at first use by ``_build.library()``) or
@@ -15,10 +18,14 @@ raises.
 from .bcsr_matmul import bcsr_matmul, bcsr_matmul_plain  # noqa: F401
 from .cyclic_encode import cyclic_encode, cyclic_encode_plain  # noqa: F401
 from .decode_matmul import decode_matmul, decode_matmul_plain  # noqa: F401
+from .mla_decode import (  # noqa: F401
+    mla_decode_attention,
+    mla_decode_attention_plain,
+)
 from .ops import coded_worker_matmul, decode_unknowns, encode_submatrices  # noqa: F401
 from .ref import pack_bcsr  # noqa: F401
 
-KERNELS = (bcsr_matmul, cyclic_encode, decode_matmul)
+KERNELS = (bcsr_matmul, cyclic_encode, decode_matmul, mla_decode_attention)
 
 
 def launch_counts() -> dict[str, int]:

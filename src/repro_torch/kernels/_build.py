@@ -1,8 +1,8 @@
 """Build and load the port's CUDA kernels, at first use.
 
-The three sources in ``csrc/`` export a plain C interface (no PyTorch
+The four sources in ``csrc/`` export a plain C interface (no PyTorch
 headers), so ``nvcc`` builds them in seconds.  Each source compiles to
-an object in its own ``nvcc`` process, all three at once, and one more
+an object in its own ``nvcc`` process, all four at once, and one more
 ``nvcc`` links them into a shared library under ``build/repro_torch/``
 at the root of the checkout.  The file name carries a hash of the
 sources and flags, so an edited source is rebuilt and an unchanged one
@@ -35,13 +35,15 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("bcsr_matmul.cu", "cyclic_encode.cu", "decode_matmul.cu")
+SOURCES = ("bcsr_matmul.cu", "cyclic_encode.cu", "decode_matmul.cu",
+           "mla_decode.cu")
 HEADERS = ("common.cuh",)
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
 _SIGNATURES = {
     # a_data, a_dtype, a_idx, counts, b, b_dtype, b_worker_stride, rows, c,
     # n_out, mb, n_workers, J, K, N, device, stream
@@ -53,6 +55,9 @@ _SIGNATURES = {
                             _I, _I, _I, _P),
     # hinv, y, rows, out, geometry (13 int64: see decode_matmul.cu), stream
     "repro_decode_matmul": (_P, _P, _P, _P, _P, _P),
+    # q_hat, q_pe, c, kr, out, geometry (12 int64: see mla_decode.cu),
+    # scale, stream
+    "repro_mla_decode": (_P, _P, _P, _P, _P, _P, _F, _P),
 }
 
 _lib: ctypes.PyDLL | None = None

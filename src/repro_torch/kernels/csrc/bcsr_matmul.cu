@@ -552,8 +552,8 @@ const Card* card_of(int dev) {
   if (dev < 0 || dev >= kDevices) return nullptr;
   std::call_once(once[dev], [dev] {
     Card c;
-    if (cudaDeviceGetAttribute(&c.sms, cudaDevAttrMultiProcessorCount, dev) ==
-            cudaSuccess &&
+    c.sms = sm_count(dev);
+    if (c.sms > 0 &&
         cudaDeviceGetAttribute(&c.smem_per_sm,
                                cudaDevAttrMaxSharedMemoryPerMultiprocessor,
                                dev) == cudaSuccess &&

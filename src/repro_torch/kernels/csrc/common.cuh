@@ -2,6 +2,7 @@
 #pragma once
 
 #include <cstdint>
+#include <mutex>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -178,6 +179,20 @@ class DeviceGuard {
   int old_ = -1;
   bool restore_ = false;
 };
+
+// The device's SM count, asked once per device; 0 when the query fails.
+inline int sm_count(int device) {
+  constexpr int kDevices = 64;
+  static int sms[kDevices];
+  static std::once_flag once[kDevices];
+  if (device < 0 || device >= kDevices) return 0;
+  std::call_once(once[device], [device] {
+    if (cudaDeviceGetAttribute(&sms[device], cudaDevAttrMultiProcessorCount,
+                               device) != cudaSuccess)
+      sms[device] = 0;
+  });
+  return sms[device];
+}
 
 // Launch Kernel with `smem` bytes of dynamic shared memory.  Above 48 KB
 // the function's limit is raised first, once per kernel and device: the

@@ -285,19 +285,6 @@ __global__ void __launch_bounds__(kThreads)
                               min(k, group * S + S));
 }
 
-// The device's SM count, asked once per device; 0 when the query fails.
-static int sm_count(int device) {
-  constexpr int kDevices = 64;
-  static int cached[kDevices] = {};
-  if (device >= 0 && device < kDevices && cached[device]) return cached[device];
-  int n = 0;
-  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device) !=
-      cudaSuccess)
-    return 0;
-  if (device >= 0 && device < kDevices) cached[device] = n;
-  return n;
-}
-
 static bool aligned_to(const void* p, size_t bytes) {
   return (reinterpret_cast<std::uintptr_t>(p) % bytes) == 0;
 }

@@ -21,10 +21,13 @@ layout, so the scores do not depend on it.
 - **Decode** (``mla_decode``) is the absorbed form: W_kvb's key half is
   folded into the query (q^ = W_kvb,k^T q_nope per head), the scores
   read the cached latent c and rotated k_pe directly, and W_kvb's value
-  half is applied after the softmax-weighted sum of c.  The cache per
-  layer is ``{"c": (B, L, kv_lora_rank), "kr": (B, L, qk_rope_head_dim)}``
-  in the model's dtype: 1,152 bytes a token a layer in bf16 at Kimi-K2's
-  widths, where expanded keys and values would take 40,960.  A step
+  half is applied after the softmax-weighted sum of c.  The scores, the
+  softmax and that sum are one kernel for bf16 on the card at Kimi-K2's
+  latent widths (``kernels.mla_decode``), the plain chain elsewhere.  The cache
+  per layer is ``{"c": (B, L, kv_lora_rank), "kr": (B, L,
+  qk_rope_head_dim)}`` in the model's dtype: 1,152 bytes a token a layer
+  in bf16 at Kimi-K2's widths, where expanded keys and values would take
+  40,960.  A step
   reads the cache up to its position, not the whole buffer.
 
 Weights keep the port's ``(d_in, d_out)`` orientation.  ``wkv_b``'s
@@ -41,6 +44,11 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import MLAConfig
+from ..kernels.mla_decode import (
+    mla_decode_attention,
+    mla_decode_attention_plain,
+    takes,
+)
 from ..obs.trace import scope
 from .layers import normal_, rms_norm
 
@@ -205,23 +213,18 @@ def mla_decode(p: dict, h: torch.Tensor, cache: dict, step: int,
         c_new, kr_new = _latent(p, h, m, positions, eps)
         cache["c"][:, step] = c_new[:, 0]
         cache["kr"][:, step] = kr_new[:, 0]
-        c, kr = cache["c"][:, :step + 1], cache["kr"][:, :step + 1]
         wkv = p["wkv_b"].view(m.kv_lora_rank, hn, dn + dv)
         wk, wv = wkv[..., :dn], wkv[..., dn:]
         # fold W_kvb's key half into the query: (B, H, kv_lora_rank)
         q_hat = torch.einsum("bhn,chn->bhc", q_nope[:, 0], wk)
-        sc = softmax_scale(m)
-        # scores laid out (B, L, H): each session's cache is the GEMM's
-        # tall operand, which cuBLAS streams ~3x faster than as the wide
-        # one of (B, H, L); the softmax runs on a (B, H, L) copy, and the
-        # probabilities go back to (B, L, H) for the same reason
-        scores = torch.bmm(kr, q_pe[:, 0].transpose(1, 2))     # (B, L, H)
-        scores.baddbmm_(c, q_hat.transpose(1, 2), beta=sc, alpha=sc)
-        # the softmax sums in f32 whatever its operand's type, and writes
-        # the probabilities in the cache's type, which the next product
-        # reads them in
-        probs = torch.softmax(scores.transpose(1, 2).contiguous(), dim=-1)
-        probs = probs.transpose(1, 2).contiguous()             # (B, L, H)
-        o_lat = torch.bmm(probs.transpose(1, 2), c)            # (B, H, c)
+        # scores over [c | kr], softmax, and the weighted sum of c: the
+        # kernel for the device, dtype and widths it is built for, else
+        # the plain chain
+        attend = (mla_decode_attention
+                  if takes(q_hat.device, q_hat.dtype, hn, m.kv_lora_rank,
+                           m.qk_rope_head_dim)
+                  else mla_decode_attention_plain)
+        o_lat = attend(q_hat, q_pe[:, 0], cache["c"], cache["kr"], step + 1,
+                       softmax_scale(m))                       # (B, H, c)
         o = torch.einsum("bhc,chv->bhv", o_lat, wv).reshape(b, 1, hn * dv)
         return torch.einsum("bse,ed->bsd", o, p["wo"])

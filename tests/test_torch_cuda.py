@@ -22,6 +22,8 @@ from repro_torch.kernels import (
     decode_matmul,
     decode_matmul_plain,
     launch_counts,
+    mla_decode_attention,
+    mla_decode_attention_plain,
     pack_bcsr,
 )
 
@@ -456,7 +458,8 @@ def test_plan_on_the_card_matches_the_cpu(hopper):
     got = card.matmat(t(B).to(hopper), done)
     after = launch_counts()
     assert {k: after[k] - before[k] for k in after} == {
-        "bcsr_matmul": 1, "cyclic_encode": 1, "decode_matmul": 1}
+        "bcsr_matmul": 1, "cyclic_encode": 1, "decode_matmul": 1,
+        "mla_decode_attention": 0}
     assert got.shape == (130, 60) and got.is_contiguous()
     np.testing.assert_allclose(got.cpu().numpy(),
                                cpu.matmat(t(B), done).numpy(),
@@ -468,7 +471,8 @@ def test_plan_on_the_card_matches_the_cpu(hopper):
     got = card.executor.decode(y.to(hopper), done)
     after = launch_counts()
     assert {k: after[k] - before[k] for k in after} == {
-        "bcsr_matmul": 0, "cyclic_encode": 0, "decode_matmul": 1}
+        "bcsr_matmul": 0, "cyclic_encode": 0, "decode_matmul": 1,
+        "mla_decode_attention": 0}
     assert got.dtype == torch.bfloat16 and got.shape == (3, 130)
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                cpu.executor.decode(y, done).float().numpy(),
@@ -537,7 +541,8 @@ def test_coded_logits_launch_counts(hopper):
     eng = smoke_engine(hopper, dict(enabled=True, n_workers=6, stragglers=2))
     after = launch_counts()
     assert {k: after[k] - before[k] for k in after} == {
-        "bcsr_matmul": 0, "cyclic_encode": 1, "decode_matmul": 0}
+        "bcsr_matmul": 0, "cyclic_encode": 1, "decode_matmul": 0,
+        "mla_decode_attention": 0}
     assert eng.coded.backend == "cuda"
     cpu = smoke_engine("cpu", dict(enabled=True, n_workers=6, stragglers=2,
                                    backend="cuda"))
@@ -549,7 +554,8 @@ def test_coded_logits_launch_counts(hopper):
         got = eng.coded_logits(hidden.to(hopper), done)
         after = launch_counts()
         assert {k: after[k] - before[k] for k in after} == {
-            "bcsr_matmul": 1, "cyclic_encode": 0, "decode_matmul": 1}
+            "bcsr_matmul": 1, "cyclic_encode": 0, "decode_matmul": 1,
+            "mla_decode_attention": 0}
         assert got.dtype == torch.float32 and got.shape == (2, 256)
         np.testing.assert_allclose(got.cpu().numpy(),
                                    cpu.coded_logits(hidden, done).numpy(),
@@ -618,7 +624,8 @@ def test_memory_cluster_matvec_on_the_card(hopper):
             after = launch_counts()
             assert {k: after[k] - before[k] for k in after} == {
                 "bcsr_matmul": plan.k, "cyclic_encode": 0,
-                "decode_matmul": 1}
+                "decode_matmul": 1,
+                "mla_decode_attention": 0}
             rep = cl.last_report
             assert (rep.deaths, rep.requeues) == (0, 0)
             assert got.device.type == "cuda" and got.shape == (2, 288)
@@ -657,7 +664,8 @@ def test_process_cluster_children_compute_on_the_card(hopper, transport):
             torch.cuda.synchronize()
             after = launch_counts()
             assert {k: after[k] - before[k] for k in after} == {
-                "bcsr_matmul": 0, "cyclic_encode": 0, "decode_matmul": 1}
+                "bcsr_matmul": 0, "cyclic_encode": 0, "decode_matmul": 1,
+                "mla_decode_attention": 0}
             assert (cl.last_report.deaths, cl.last_report.requeues) == (0, 0)
             assert torch.equal(got, plan.matvec(x.to(hopper), done))
         reports = tr.reports()
@@ -785,7 +793,8 @@ def test_coded_moe_on_the_card_matches_moe_block(hopper):
     cm = CodedMoE(p, moe, n_workers=6, stragglers=2)
     after = launch_counts()
     assert {k: after[k] - before[k] for k in after} == {
-        "bcsr_matmul": 0, "cyclic_encode": 96, "decode_matmul": 0}
+        "bcsr_matmul": 0, "cyclic_encode": 96, "decode_matmul": 0,
+        "mla_decode_attention": 0}
     assert set(cm.backends()) == {"cuda"}
     ref, aux_ref = moe_block(p, x, moe)
     for done in (None, np.asarray([True, False, True, True, False, True]),
@@ -795,7 +804,8 @@ def test_coded_moe_on_the_card_matches_moe_block(hopper):
         torch.cuda.synchronize()
         after = launch_counts()
         assert {k: after[k] - before[k] for k in after} == {
-            "bcsr_matmul": 96, "cyclic_encode": 0, "decode_matmul": 96}
+            "bcsr_matmul": 96, "cyclic_encode": 0, "decode_matmul": 96,
+            "mla_decode_attention": 0}
         np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
                                    rtol=1e-4, atol=1e-4)
         assert abs(float(aux) - float(aux_ref)) <= 1e-6
@@ -909,7 +919,8 @@ def test_retune_on_the_card_launches_one_encode(hopper):
     torch.cuda.synchronize()
     after = launch_counts()
     assert {k: after[k] - before[k] for k in after} == {
-        "bcsr_matmul": 0, "cyclic_encode": 1, "decode_matmul": 0}
+        "bcsr_matmul": 0, "cyclic_encode": 1, "decode_matmul": 0,
+        "mla_decode_attention": 0}
     assert tr.retunes == [{"step": 0, "backend": "cuda", "changed": False}]
     head = params["head"].detach()
     assert plan._A is not head and torch.equal(plan._A, head)
@@ -922,9 +933,180 @@ def test_retune_on_the_card_launches_one_encode(hopper):
     torch.cuda.synchronize()
     after = launch_counts()
     assert {k: after[k] - before[k] for k in after} == {
-        "bcsr_matmul": 1, "cyclic_encode": 0, "decode_matmul": 1}
+        "bcsr_matmul": 1, "cyclic_encode": 0, "decode_matmul": 1,
+        "mla_decode_attention": 0}
     np.testing.assert_allclose(got.cpu().numpy(), (x @ head).cpu().numpy(),
                                rtol=2e-4, atol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# Latent attention's absorbed decode
+# ---------------------------------------------------------------------------
+
+# Kimi-K2's softmax scale (``models.mla.softmax_scale``)
+MLA_SCALE = 0.13086
+
+
+def mla_inputs(dev, b, length_max, seed=0, h=64, r=512, p=64,
+               dtype=torch.bfloat16):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=gen, device=dev).to(dtype)
+                 for shape in ((b, h, r), (b, h, p), (b, length_max, r),
+                               (b, length_max, p)))
+
+
+def mla_expanded(q_hat, q_pe, c, kr, length, scale, chunk=64):
+    """Attention over keys [c | kr] and values c in f64, by sessions."""
+    out = []
+    for at in range(0, q_hat.shape[0], chunk):
+        q = torch.cat([q_hat[at:at + chunk], q_pe[at:at + chunk]], -1)
+        k = torch.cat([c[at:at + chunk, :length], kr[at:at + chunk, :length]],
+                      -1)
+        w = torch.softmax(scale * q.double() @ k.double().transpose(1, 2), -1)
+        out.append(w @ c[at:at + chunk, :length].double())
+    return torch.cat(out)
+
+
+@pytest.mark.parametrize("length", [1, 63, 64, 65, 2049, 3072])
+@pytest.mark.parametrize("b", [1, 3, 133, 1024])
+def test_mla_decode_attention_against_f64(hopper, b, length):
+    """The kernel's largest error against f64 is no larger than 1.1x the
+    plain chain's (which rounds its scores to bf16; the kernel keeps them
+    in f32), on a cache buffer of 3072 positions."""
+    args = mla_inputs(hopper, b, 3072, seed=b + length)
+    before = mla_decode_attention.launches
+    got = mla_decode_attention(*args, length, MLA_SCALE)
+    assert mla_decode_attention.launches == before + 1
+    assert got.shape == (b, 64, 512) and got.dtype == torch.bfloat16
+    want = mla_expanded(*args, length, MLA_SCALE)
+    err = (got.double() - want).abs().max().item()
+    plain = mla_decode_attention_plain(*args, length, MLA_SCALE)
+    err_plain = (plain.double() - want).abs().max().item()
+    assert err <= 1.1 * err_plain, (err, err_plain)
+
+
+def test_mla_decode_attention_never_reads_past_length(hopper):
+    """Positions at and past ``length`` hold NaN: the output is finite and
+    equal to the one over a clean buffer."""
+    q_hat, q_pe, c, kr = mla_inputs(hopper, 5, 300, seed=3)
+    want = mla_decode_attention(q_hat, q_pe, c, kr, 130, MLA_SCALE)
+    c[:, 130:], kr[:, 130:] = float("nan"), float("nan")
+    got = mla_decode_attention(q_hat, q_pe, c, kr, 130, MLA_SCALE)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want)
+
+
+def test_mla_decode_attention_reads_strided_operands(hopper):
+    """A cache sliced from a longer buffer (batch stride 4096 * 512, not
+    L * 512), and q_hat laid out as ``mla_decode``'s einsum leaves it
+    (heads outermost), read as their contiguous copies."""
+    q_hat, q_pe, c_buf, kr_buf = mla_inputs(hopper, 7, 4096, seed=4)
+    c, kr = c_buf[2:6, :3000], kr_buf[2:6, :3000]
+    assert c.stride(0) == 4096 * 512
+    q_heads_outer = q_hat[2:6].transpose(0, 1).contiguous().transpose(0, 1)
+    assert q_heads_outer.stride() == (512, 4 * 512, 1)
+    got = mla_decode_attention(q_heads_outer, q_pe[2:6], c, kr, 2500,
+                               MLA_SCALE)
+    want = mla_decode_attention(q_hat[2:6].contiguous(),
+                                q_pe[2:6].contiguous(), c.contiguous(),
+                                kr.contiguous(), 2500, MLA_SCALE)
+    assert torch.equal(got, want)
+    ref = mla_expanded(q_hat[2:6], q_pe[2:6], c, kr, 2500, MLA_SCALE)
+    plain = mla_decode_attention_plain(q_hat[2:6], q_pe[2:6], c, kr, 2500,
+                                       MLA_SCALE)
+    assert ((got.double() - ref).abs().max()
+            <= 1.1 * (plain.double() - ref).abs().max())
+
+
+def test_mla_decode_attention_raises_instead_of_falling_back(hopper):
+    q_hat, q_pe, c, kr = mla_inputs(hopper, 2, 64)
+    with pytest.raises(TypeError, match="bfloat16"):
+        mla_decode_attention(q_hat.float(), q_pe.float(), c.float(),
+                             kr.float(), 10, MLA_SCALE)
+    narrow = mla_inputs(hopper, 2, 64, r=256)
+    with pytest.raises(ValueError, match="R = 512"):
+        mla_decode_attention(*narrow, 10, MLA_SCALE)
+    c_cols = c.transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="stride 1"):
+        mla_decode_attention(q_hat, q_pe, c_cols, kr, 10, MLA_SCALE)
+    with pytest.raises(ValueError, match="expected"):
+        mla_decode_attention(q_hat, q_pe, c.cpu(), kr, 10, MLA_SCALE)
+
+
+def test_kimi_decode_step_launches_the_kernel_once_a_layer(hopper,
+                                                           monkeypatch):
+    """One ``decode_step`` of the benchmark cell's model (5 layers, 8 held
+    experts, published widths, bf16) at batch 4: one launch a layer, and
+    logits within the cell's median limit (4e-2 of the largest) of the
+    same step through the plain chain."""
+    import dataclasses
+
+    import repro_torch.models.mla as mla_module
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config("kimi-k2-instruct").with_(n_layers=5)
+    cfg = cfg.with_(moe=dataclasses.replace(cfg.moe, n_held=8, held_from=0))
+    model = build_model(cfg, torch.bfloat16, device=hopper)
+    model.init(torch.Generator(device=hopper).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (4, 70), device=hopper,
+                         generator=torch.Generator(device=hopper)
+                         .manual_seed(1))
+    with torch.inference_mode():
+        _, cache = model.prefill(toks[:, :69], 96)
+        before = mla_decode_attention.launches
+        got, _ = model.decode_step(cache, toks[:, 69:])
+        assert mla_decode_attention.launches == before + cfg.n_layers
+        cache["step"] = 69
+        monkeypatch.setattr(mla_module, "takes", lambda *route: False)
+        want, _ = model.decode_step(cache, toks[:, 69:])
+    assert mla_decode_attention.launches == before + cfg.n_layers
+    assert torch.isfinite(got).all()
+    err = (got.float() - want.float()).abs().max() / want.abs().max()
+    assert err <= 4e-2, float(err)
+
+
+@pytest.mark.parametrize("widths,dtype,kernel", [
+    ("latent", torch.bfloat16, True),
+    ("latent", torch.float32, False),
+    ("latent", torch.float16, False),
+    ("smoke", torch.bfloat16, False),
+])
+def test_mla_decode_on_the_card_routes_by_dtype_and_widths(
+        hopper, monkeypatch, widths, dtype, kernel):
+    """A latent model on the card decodes in every dtype at every width:
+    bf16 at Kimi-K2's latent widths through the kernel (one launch a
+    layer), anything else through the plain chain, as on the CPU."""
+    import dataclasses
+
+    import repro_torch.models.mla as mla_module
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+
+    cfg = get_smoke_config("kimi-k2-instruct")
+    if widths == "latent":
+        cfg = cfg.with_(mla=dataclasses.replace(
+            cfg.mla, n_heads=64, kv_lora_rank=512, qk_rope_head_dim=64))
+    model = build_model(cfg, dtype, device=hopper)
+    model.init(torch.Generator(device=hopper).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (3, 10), device=hopper,
+                         generator=torch.Generator(device=hopper)
+                         .manual_seed(1))
+    with torch.inference_mode():
+        _, cache = model.prefill(toks[:, :9], 16)
+        before = mla_decode_attention.launches
+        got, _ = model.decode_step(cache, toks[:, 9:])
+        assert (mla_decode_attention.launches
+                == before + (cfg.n_layers if kernel else 0))
+        cache["step"] = 9
+        monkeypatch.setattr(mla_module, "takes", lambda *route: False)
+        want, _ = model.decode_step(cache, toks[:, 9:])
+    assert torch.isfinite(got).all()
+    if kernel:
+        err = (got.float() - want.float()).abs().max() / want.abs().max()
+        assert err <= 4e-2, float(err)
+    else:
+        assert torch.equal(got, want)
 
 
 # ---------------------------------------------------------------------------

@@ -26,6 +26,8 @@ from repro_torch.kernels import (
     decode_unknowns,
     encode_submatrices,
     launch_counts,
+    mla_decode_attention,
+    mla_decode_attention_plain,
     pack_bcsr,
     reset_launch_counts,
 )
@@ -425,8 +427,15 @@ def test_cpu_tensors_take_the_plain_version():
     h, y = t(rng.standard_normal((3, 3))), t(rng.standard_normal((3, 10)))
     np.testing.assert_array_equal(decode_matmul(h, y).numpy(),
                                   decode_matmul_plain(h, y).numpy())
+    q_hat, q_pe = t(rng.standard_normal((2, 4, 16))), t(rng.standard_normal(
+        (2, 4, 8)))
+    c, kr = t(rng.standard_normal((2, 6, 16))), t(rng.standard_normal(
+        (2, 6, 8)))
+    np.testing.assert_array_equal(
+        mla_decode_attention(q_hat, q_pe, c, kr, 5, 0.3).numpy(),
+        mla_decode_attention_plain(q_hat, q_pe, c, kr, 5, 0.3).numpy())
     assert launch_counts() == {"bcsr_matmul": 0, "cyclic_encode": 0,
-                               "decode_matmul": 0}
+                               "decode_matmul": 0, "mla_decode_attention": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -505,10 +514,12 @@ def test_launch_counters_exact_across_threads():
         assert not any(th.is_alive() for th in threads)
         assert launch_counts() == {"bcsr_matmul": 4 * per_thread,
                                    "cyclic_encode": 2 * per_thread,
-                                   "decode_matmul": 2 * per_thread}
+                                   "decode_matmul": 2 * per_thread,
+                                   "mla_decode_attention": 0}
     finally:
         sys.setswitchinterval(old)
-        for fn in (bcsr_matmul, cyclic_encode, decode_matmul):
+        for fn in (bcsr_matmul, cyclic_encode, decode_matmul,
+                   mla_decode_attention):
             fn.launches = saved[fn.__name__]
 
 
