@@ -354,6 +354,19 @@ def ring_cache(kv: torch.Tensor, length: int, roll: int, dtype
                      dim=1).to(dtype)
 
 
+def prompt_kv_cache(kv: torch.Tensor, max_len: int, window: int | None,
+                    dtype) -> torch.Tensor:
+    """The decode cache of a prompt's keys or values ``kv`` (B, S, KV,
+    D), laid out as ``init_kv_cache`` and ``attention_decode`` read it:
+    a window layer's prompt longer than its cache keeps the last keys
+    in ring order (next slot ``S mod length``), any other a prefix."""
+    s = kv.shape[1]
+    length = min(window, max_len) if window else max_len
+    if window and s > length:
+        return ring_cache(kv, length, s % length, dtype)
+    return prefix_cache(kv, length, dtype)
+
+
 def attention_decode(p: dict, x: torch.Tensor, cache: dict, step: int,
                      a: AttnConfig, *, eps: float,
                      window: int | None = None) -> tuple[torch.Tensor, dict]:

@@ -9,15 +9,14 @@ layer stack repeats a *pattern* of layer kinds ``n_groups`` times:
   mamba2:                ("M",) x 48
   zamba2:                ("M","M","M","M","M","S") x 9   (S = shared block)
 
-``L`` layers attend within ``cfg.attn.window`` and keep a ring-buffer
-KV cache of that length; ``A``, ``G`` and ``S`` layers attend to the
-whole context; ``M`` layers are Mamba-2 (SSD) blocks.  With ``cfg.moe``
-every attention layer but ``S`` has an MoE FFN (``moe``) in place of
+``L`` layers attend within ``cfg.attn.window``; ``A``, ``G`` and ``S``
+layers attend to the whole context; ``M`` layers are Mamba-2 (SSD)
+blocks.  With ``cfg.moe`` every attention layer but ``S`` and the
+``cfg.first_dense`` leading ones has an MoE FFN (``moe``) in place of
 its dense one (``mlp``).  ``S`` is the hybrid's shared attention layer:
-one ``Block`` (the module's ``shared``) applied at every ``S`` position
-with the same weights, each position keeping its own KV cache.  A vlm
-config prepends ``image_embeds`` (the stub CLIP tokens) to the token
-embeddings.
+one block (the module's ``shared``) applied at every ``S`` position
+with the same weights, each position keeping its own cache.  A vlm
+config prepends ``image_embeds`` (the stub CLIP tokens) to the tokens.
 
 The reference stacks each pattern position's weights over ``n_groups``
 and scans; the port keeps one module per layer in an ``nn.ModuleList``
@@ -26,28 +25,25 @@ group ``g``; an ``S`` position holds an empty ``SharedSlot``).  Weights
 keep the reference's ``(d_in, d_out)`` orientation, so
 ``repro_torch.convert`` carries them across as plain copies.
 
+Each layer kind is one class (``AttentionBlock``, ``LatentBlock`` for
+``cfg.mla``, ``MambaBlock``) and every entry of ``_blocks()`` answers
+``init(gen)``, ``forward(x) -> (x, aux or None)`` (training),
+``init_cache(batch, max_len)``, ``prefill(x, max_len) -> (x, cache)``
+and ``decode(x, cache, step) -> x``, so the model's loops never ask
+what a layer is.  A new kind is a class and a line in ``_make``.
+
 Every parameter is built frozen (``requires_grad=False``): serving runs
 under ``torch.inference_mode``.  The trainer turns grad on
 (``model.requires_grad_(True)``) and calls ``train_loss``; while grad
 is enabled, ``forward`` checkpoints each layer as ``cfg.remat`` says
 (the reference's ``_maybe_remat``).
 
-A config with ``cfg.mla`` has latent attention (``models/mla.py``) in
-every attention layer: the expanded form over whole sequences, the
-absorbed form in ``decode_step``.  ``cfg.first_dense`` leading layers of
-an MoE config keep a dense FFN of width ``d_ff``.
-
-Serving state is a dict ``{"layers": [per-layer cache], "step": int}``:
-``{"k", "v"}`` for an attention layer, ``{"c", "kr"}`` (the latent and
-the rotated key) for a latent-attention layer, ``{"conv", "state"}`` for
-a mamba layer.  ``step`` is a host int, so a decode step needs no
-device-to-host copy, and ``decode_step`` writes the cache tensors in
-place.
+Serving state is ``{"layers": [per-layer cache], "step": int}``, each
+cache laid out by its layer's class and written in place by ``decode``;
+``step`` is a host int, so a decode step needs no device-to-host copy.
 """
 
 from __future__ import annotations
-
-import functools
 
 import torch
 from torch import nn
@@ -69,7 +65,7 @@ from .layers import (
     mlp_param_shapes,
     normal_,
     prefix_cache,
-    ring_cache,
+    prompt_kv_cache,
     rms_norm,
     self_attention,
 )
@@ -92,11 +88,6 @@ from .mla import (
 from .moe import init_moe_params, moe_apply, moe_param_shapes
 
 LAYER_KINDS = ("A", "L", "G", "S", "M")
-
-
-# ---------------------------------------------------------------------------
-# Sharded cross-entropy
-# ---------------------------------------------------------------------------
 
 
 def sharded_cross_entropy(logits: torch.Tensor, labels: torch.Tensor
@@ -155,24 +146,24 @@ def _vector(d: int, dtype, device) -> nn.Parameter:
 
 
 class Block(nn.Module):
-    """One attention layer: pre-norm attention (latent attention with
-    ``cfg.mla``), then a pre-norm FFN (``moe`` for an MoE config's A/L/G
-    layers but the ``dense`` leading ones, else ``mlp``).  A sigmoid-
+    """An attention layer: pre-norm attention (the subclass's
+    ``_init_attn``, ``_attend``, ``_attend_one``, ``init_cache`` and
+    ``prefill``), then a pre-norm FFN, ``moe`` or ``mlp``.  A sigmoid-
     routed ``moe`` keeps ``held_tokens``, the slots routed to each held
     expert, summed on the device (not in the state dict)."""
 
-    def __init__(self, cfg: ModelConfig, kind: str, dtype, device,
-                 dense: bool = False):
+    causal = True   # training's mask; prefill is always causal
+
+    def __init__(self, cfg: ModelConfig, kind: str, attn_shapes: dict,
+                 dtype, device, dense: bool):
         super().__init__()
         d = cfg.d_model
-        self.kind = kind
-        self.window = cfg.attn.window if kind == "L" else None
+        self.cfg, self.kind, self.dtype = cfg, kind, dtype
         self.norm1 = _vector(d, dtype, device)
         self.norm2 = _vector(d, dtype, device)
-        shapes = mla_param_shapes(d, cfg.mla) if cfg.mla is not None \
-            else attn_param_shapes(d, cfg.attn)
-        self.attn = _params(shapes, dtype, device)
-        if cfg.moe is not None and kind != "S" and not dense:
+        self.attn = _params(attn_shapes, dtype, device)
+        self.routed = cfg.moe is not None and kind != "S" and not dense
+        if self.routed:
             self.moe = _params(moe_param_shapes(d, cfg.moe), dtype, device,
                                f32=("router", "bias"))
             if cfg.moe.scoring == "sigmoid":
@@ -184,15 +175,12 @@ class Block(nn.Module):
                                device)
 
     @torch.no_grad()
-    def init(self, cfg: ModelConfig, gen: torch.Generator) -> None:
+    def init(self, gen: torch.Generator) -> None:
+        cfg, std = self.cfg, self.cfg.init_std
         self.norm1.fill_(1.0)
         self.norm2.fill_(1.0)
-        std = cfg.init_std
-        if cfg.mla is not None:
-            init_mla_params(self.attn, std, gen)
-        else:
-            init_attn_params(self.attn, cfg.d_model, cfg.attn, gen)
-        if hasattr(self, "moe"):
+        self._init_attn(gen)
+        if self.routed:
             init_moe_params(self.moe, cfg.d_model, cfg.moe, gen, std)
         elif std is not None:
             for w in self.mlp.values():
@@ -200,23 +188,140 @@ class Block(nn.Module):
         else:
             init_mlp_params(self.mlp, cfg.d_model, cfg.d_ff, cfg.act, gen)
 
+    def _ffn(self, x: torch.Tensor):
+        """Pre-norm FFN residual -> (x, aux)."""
+        cfg = self.cfg
+        h = rms_norm(x, self.norm2, cfg.norm_eps)
+        if self.routed:
+            y, aux = moe_apply(self.moe, h, cfg.moe,
+                               getattr(self, "held_tokens", None))
+            return x + y, aux
+        return x + mlp_block(self.mlp, h, cfg.act), None
+
+    def _seq(self, x: torch.Tensor, causal: bool, cut: bool = False):
+        """The layer over a whole sequence -> (x, aux, k, v); ``cut``: the
+        residual's sharding cut point between attention and FFN (the
+        reference's training layer has it, its prefill not)."""
+        y, k, v = self._attend(rms_norm(x, self.norm1, self.cfg.norm_eps),
+                               causal)
+        return self._ffn(shard("resid", x + y) if cut else x + y) + (k, v)
+
+    def forward(self, x: torch.Tensor):
+        x, aux, _, _ = self._seq(x, self.causal, cut=True)
+        return shard("resid", x), aux
+
+    def decode(self, x: torch.Tensor, cache: dict, step: int):
+        h = rms_norm(x, self.norm1, self.cfg.norm_eps)
+        return self._ffn(x + self._attend_one(h, cache, step))[0]
+
+
+class AttentionBlock(Block):
+    """Grouped-head attention (``cfg.attn``), its cache ``{"k", "v"}``: an
+    ``L`` layer attends within ``cfg.attn.window`` and keeps a ring of
+    that length, the others a prefix of ``max_len``."""
+
+    def __init__(self, cfg: ModelConfig, kind: str, dtype, device, dense):
+        super().__init__(cfg, kind, attn_param_shapes(cfg.d_model, cfg.attn),
+                         dtype, device, dense)
+        self.window = cfg.attn.window if kind == "L" else None
+        self.causal = cfg.attn.causal
+
+    def _init_attn(self, gen: torch.Generator) -> None:
+        init_attn_params(self.attn, self.cfg.d_model, self.cfg.attn, gen)
+
+    def _attend(self, h: torch.Tensor, causal: bool):
+        cfg = self.cfg
+        b, s, _ = h.shape
+        positions = torch.arange(s, device=h.device)[None, :]
+        q, k, v = _project_qkv(self.attn, h, cfg.attn, positions,
+                               cfg.norm_eps)
+        o = self_attention(q, k, v, causal=causal, window=self.window,
+                           impl=cfg.attn_impl, chunk=cfg.attn_chunk)
+        return (torch.einsum("bse,ed->bsd", reshape(o, b, s, -1),
+                             self.attn["wo"]), k, v)
+
+    def _attend_one(self, h: torch.Tensor, cache: dict, step: int):
+        return attention_decode(self.attn, h, cache, step, self.cfg.attn,
+                                eps=self.cfg.norm_eps, window=self.window)[0]
+
+    def init_cache(self, batch: int, max_len: int) -> dict:
+        return init_kv_cache(batch, max_len, self.cfg.attn, self.window,
+                             self.dtype, self.norm1.device)
+
+    def prefill(self, x: torch.Tensor, max_len: int):
+        x, _, k, v = self._seq(x, causal=True)
+        ck, cv = (prompt_kv_cache(t, max_len, self.window, self.dtype)
+                  for t in (k, v))
+        cache = {"k": shard("kv", ck), "v": shard("kv", cv)}
+        return shard("resid", x), cache
+
+
+class LatentBlock(Block):
+    """Latent attention (``cfg.mla``, ``models/mla.py``), always causal:
+    the expanded form over whole sequences, the absorbed form decoding
+    against ``{"c", "kr"}``, the latent and the rotated key."""
+
+    def __init__(self, cfg: ModelConfig, kind: str, dtype, device, dense):
+        super().__init__(cfg, kind, mla_param_shapes(cfg.d_model, cfg.mla),
+                         dtype, device, dense)
+
+    def _init_attn(self, gen: torch.Generator) -> None:
+        init_mla_params(self.attn, self.cfg.init_std, gen)
+
+    def _attend(self, h: torch.Tensor, causal: bool):
+        return mla_prefill(self.attn, h, self.cfg.mla, eps=self.cfg.norm_eps)
+
+    def _attend_one(self, h: torch.Tensor, cache: dict, step: int):
+        return mla_decode(self.attn, h, cache, step, self.cfg.mla,
+                          eps=self.cfg.norm_eps)
+
+    def init_cache(self, batch: int, max_len: int) -> dict:
+        return init_latent_cache(batch, max_len, self.cfg.mla, self.dtype,
+                                 self.norm1.device)
+
+    def prefill(self, x: torch.Tensor, max_len: int):
+        x, _, c, kr = self._seq(x, causal=True)
+        return x, {"c": prefix_cache(c, max_len, self.dtype),
+                   "kr": prefix_cache(kr, max_len, self.dtype)}
+
 
 class MambaBlock(nn.Module):
-    """One Mamba-2 layer: pre-norm SSD block."""
+    """One Mamba-2 layer: pre-norm SSD block, its cache ``{"conv",
+    "state"}`` the last ``d_conv - 1`` conv inputs and the SSD state."""
 
     kind = "M"
-    window = None
 
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
+        self.cfg, self.dtype = cfg, dtype
         self.norm = _vector(cfg.d_model, dtype, device)
         self.mamba = _params(mamba_param_shapes(cfg.d_model, cfg.ssm),
                              dtype, device, f32=F32_PARAMS)
 
     @torch.no_grad()
-    def init(self, cfg: ModelConfig, gen: torch.Generator) -> None:
+    def init(self, gen: torch.Generator) -> None:
         self.norm.fill_(1.0)
-        init_mamba_params(self.mamba, cfg.d_model, cfg.ssm, gen)
+        init_mamba_params(self.mamba, self.cfg.d_model, self.cfg.ssm, gen)
+
+    def _ssd(self, fn, x: torch.Tensor, *cache):
+        """``fn`` (a ``mamba_*`` function) on the pre-normed ``x``."""
+        cfg = self.cfg
+        return fn(self.mamba, rms_norm(x, self.norm, cfg.norm_eps), *cache,
+                  cfg.ssm, eps=cfg.norm_eps)
+
+    def forward(self, x: torch.Tensor):
+        return x + self._ssd(mamba_block, x), None
+
+    def init_cache(self, batch: int, max_len: int) -> dict:
+        return init_mamba_cache(batch, self.cfg.d_model, self.cfg.ssm,
+                                self.dtype, self.norm.device)
+
+    def prefill(self, x: torch.Tensor, max_len: int):
+        y, cache = self._ssd(mamba_prefill, x)
+        return shard("resid", x + y), cache
+
+    def decode(self, x: torch.Tensor, cache: dict, step: int):
+        return x + self._ssd(mamba_decode_step, x, cache)[0]
 
 
 class SharedSlot(nn.Module):
@@ -240,11 +345,11 @@ class TransformerLM(nn.Module):
             torch.empty((cfg.vocab, cfg.d_model), dtype=dtype, device=dev),
             requires_grad=False)
         self.layers = nn.ModuleList(
-            self._make(cfg, cfg.pattern[i % len(cfg.pattern)], dtype, dev,
-                       dense=i < cfg.first_dense)
-            for i in range(cfg.n_groups * len(cfg.pattern)))
+            SharedSlot() if kind == "S" else
+            self._make(cfg, kind, dtype, dev, dense=i < cfg.first_dense)
+            for i, kind in enumerate(cfg.pattern * cfg.n_groups))
         if "S" in cfg.pattern:
-            self.shared = Block(cfg, "S", dtype, dev)
+            self.shared = self._make(cfg, "S", dtype, dev)
         self.final_norm = _vector(cfg.d_model, dtype, dev)
         if not cfg.tie_embeddings:
             self.head = nn.Parameter(
@@ -254,11 +359,12 @@ class TransformerLM(nn.Module):
     @staticmethod
     def _make(cfg: ModelConfig, kind: str, dtype, device,
               dense: bool = False) -> nn.Module:
+        """The layer of ``kind``: the one place a layer's class is picked."""
         if kind == "M":
             return MambaBlock(cfg, dtype, device)
-        if kind == "S":
-            return SharedSlot()
-        return Block(cfg, kind, dtype, device, dense=dense)
+        if cfg.mla is not None:
+            return LatentBlock(cfg, kind, dtype, device, dense=dense)
+        return AttentionBlock(cfg, kind, dtype, device, dense=dense)
 
     @property
     def device(self) -> torch.device:
@@ -268,8 +374,6 @@ class TransformerLM(nn.Module):
         """The module applied at each layer position, in order."""
         return [self.shared if blk.kind == "S" else blk
                 for blk in self.layers]
-
-    # -------------------- params --------------------
 
     @torch.no_grad()
     def init(self, gen: torch.Generator) -> dict:
@@ -281,15 +385,13 @@ class TransformerLM(nn.Module):
         normal_(self.embed, cfg.init_std or 0.02, gen)
         for blk in self.layers:
             if blk.kind != "S":
-                blk.init(cfg, gen)
+                blk.init(gen)
         if "S" in cfg.pattern:
-            self.shared.init(cfg, gen)
+            self.shared.init(gen)
         self.final_norm.fill_(1.0)
         if not cfg.tie_embeddings:
             normal_(self.head, cfg.init_std or 0.02, gen)
         return self.state_dict()
-
-    # -------------------- forward --------------------
 
     def _embed(self, tokens, image_embeds=None) -> torch.Tensor:
         tokens = as_tensor(tokens, self.device).long()
@@ -306,52 +408,6 @@ class TransformerLM(nn.Module):
             return shard("logits",
                          torch.einsum("bsd,dv->bsv", x, head).float())
 
-    def _ffn(self, blk: Block, x: torch.Tensor):
-        """Pre-norm FFN residual -> (x, aux)."""
-        cfg = self.cfg
-        h = rms_norm(x, blk.norm2, cfg.norm_eps)
-        if hasattr(blk, "moe"):
-            y, aux = moe_apply(blk.moe, h, cfg.moe,
-                               getattr(blk, "held_tokens", None))
-            return x + y, aux
-        return x + mlp_block(blk.mlp, h, cfg.act), None
-
-    def _layer(self, blk: Block, x: torch.Tensor, causal: bool,
-               cut: bool = False):
-        """One attention layer over a whole sequence -> (x, k, v, aux);
-        ``cut``: the residual's sharding cut point between attention and
-        FFN (the reference's training layer has it, its prefill not)."""
-        cfg = self.cfg
-        b, s, _ = x.shape
-        h = rms_norm(x, blk.norm1, cfg.norm_eps)
-        if cfg.mla is not None:
-            # latent attention: (k, v) are the latent and the rotated key
-            y, k, v = mla_prefill(blk.attn, h, cfg.mla, eps=cfg.norm_eps)
-        else:
-            positions = torch.arange(s, device=x.device)[None, :]
-            q, k, v = _project_qkv(blk.attn, h, cfg.attn, positions,
-                                   cfg.norm_eps)
-            o = self_attention(q, k, v, causal=causal, window=blk.window,
-                               impl=cfg.attn_impl, chunk=cfg.attn_chunk)
-            y = torch.einsum("bse,ed->bsd", reshape(o, b, s, -1),
-                             blk.attn["wo"])
-        x = x + y
-        if cut:
-            x = shard("resid", x)
-        x, aux = self._ffn(blk, x)
-        return x, k, v, aux
-
-    def _train_layer(self, blk, x: torch.Tensor):
-        """One layer of the forward -> (x, aux or None)."""
-        cfg = self.cfg
-        if blk.kind == "M":
-            return x + mamba_block(blk.mamba,
-                                   rms_norm(x, blk.norm, cfg.norm_eps),
-                                   cfg.ssm, eps=cfg.norm_eps), None
-        causal = cfg.mla is not None or cfg.attn.causal  # MLA: always
-        x, _, _, a = self._layer(blk, x, causal, cut=True)
-        return shard("resid", x), a
-
     def forward(self, tokens, image_embeds=None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
         """Full forward -> (logits (B, S_total, V) f32, aux).  With grad
@@ -360,8 +416,7 @@ class TransformerLM(nn.Module):
         x = shard("resid", self._embed(tokens, image_embeds))
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for blk in self._blocks():
-            x, a = remat_layer(functools.partial(self._train_layer, blk),
-                               cfg.remat, x)
+            x, a = remat_layer(blk, cfg.remat, x)
             if a is not None:
                 aux = aux + a
         return self._logits(x), aux / cfg.n_layers
@@ -376,92 +431,34 @@ class TransformerLM(nn.Module):
         ce = sharded_cross_entropy(logits[:, v:], labels)
         return ce + 0.01 * aux
 
-    # -------------------- serving --------------------
-
     def init_cache(self, batch: int, max_len: int) -> dict:
-        cfg = self.cfg
-        caches = []
-        for blk in self._blocks():
-            if blk.kind == "M":
-                caches.append(init_mamba_cache(batch, cfg.d_model, cfg.ssm,
-                                               self.dtype, self.device))
-            elif cfg.mla is not None:
-                caches.append(init_latent_cache(batch, max_len, cfg.mla,
-                                                self.dtype, self.device))
-            else:
-                caches.append(init_kv_cache(batch, max_len, cfg.attn,
-                                            blk.window, self.dtype,
-                                            self.device))
-        return {"layers": caches, "step": 0}
+        return {"layers": [blk.init_cache(batch, max_len)
+                           for blk in self._blocks()], "step": 0}
 
     def prefill(self, tokens, max_len: int, image_embeds=None
                 ) -> tuple[torch.Tensor, dict]:
         """Process a full prompt (after the image prefix, when given),
-        build the decode cache -> (last logits (B, V), cache).  Window
-        layers keep the last W keys in ring order, as the reference lays
-        them out; mamba layers keep the last ``d_conv - 1`` conv inputs
-        and the final SSD state."""
+        build each layer's decode cache -> (last logits (B, V), cache)."""
         with scope("model.prefill"):
-            return self._prefill(tokens, max_len, image_embeds)
-
-    def _prefill(self, tokens, max_len: int, image_embeds=None):
-        cfg = self.cfg
-        x = shard("resid", self._embed(tokens, image_embeds))
-        b, s, _ = x.shape
-        caches = []
-        for blk in self._blocks():
-            if blk.kind == "M":
-                y, c = mamba_prefill(blk.mamba,
-                                     rms_norm(x, blk.norm, cfg.norm_eps),
-                                     cfg.ssm, eps=cfg.norm_eps)
-                x = shard("resid", x + y)
+            x = shard("resid", self._embed(tokens, image_embeds))
+            caches = []
+            for blk in self._blocks():
+                x, c = blk.prefill(x, max_len)
                 caches.append(c)
-                continue
-            x, kk, vv, _ = self._layer(blk, x, causal=True)
-            if cfg.mla is not None:
-                caches.append({"c": prefix_cache(kk, max_len, self.dtype),
-                               "kr": prefix_cache(vv, max_len, self.dtype)})
-                continue
-            window = blk.window
-            length = min(window, max_len) if window else max_len
-            if window and s > length:
-                ck = ring_cache(kk, length, s % length, self.dtype)
-                cv = ring_cache(vv, length, s % length, self.dtype)
-            else:
-                ck = prefix_cache(kk, length, self.dtype)
-                cv = prefix_cache(vv, length, self.dtype)
-            caches.append({"k": shard("kv", ck), "v": shard("kv", cv)})
-            x = shard("resid", x)
-        logits = self._logits(x[:, -1:, :])
-        return logits[:, 0], {"layers": caches, "step": s}
+            logits = self._logits(x[:, -1:, :])
+            return logits[:, 0], {"layers": caches, "step": x.shape[1]}
 
     def decode_step(self, cache: dict, tokens) -> tuple[torch.Tensor, dict]:
         """One-token step.  tokens (B, 1) -> (logits (B, V), cache); the
         cache is advanced in place and returned."""
         with scope("model.decode_step"):
-            return self._decode_step(cache, tokens)
-
-    def _decode_step(self, cache: dict, tokens):
-        cfg = self.cfg
-        x = self._embed(tokens)
-        step = cache["step"]
-        for blk, c in zip(self._blocks(), cache["layers"]):
-            if blk.kind == "M":
-                y, _ = mamba_decode_step(blk.mamba,
-                                         rms_norm(x, blk.norm, cfg.norm_eps),
-                                         c, cfg.ssm, eps=cfg.norm_eps)
-                x = x + y
-                continue
-            h = rms_norm(x, blk.norm1, cfg.norm_eps)
-            if cfg.mla is not None:
-                y = mla_decode(blk.attn, h, c, step, cfg.mla,
-                               eps=cfg.norm_eps)
-            else:
-                y, _ = attention_decode(blk.attn, h, c, step, cfg.attn,
-                                        eps=cfg.norm_eps, window=blk.window)
-            x, _ = self._ffn(blk, x + y)
-        logits = self._logits(x)
-        return logits[:, 0], {"layers": cache["layers"], "step": step + 1}
+            x = self._embed(tokens)
+            step = cache["step"]
+            for blk, c in zip(self._blocks(), cache["layers"]):
+                x = blk.decode(x, c, step)
+            logits = self._logits(x)
+            return logits[:, 0], {"layers": cache["layers"],
+                                  "step": step + 1}
 
 
 def join_caches(parts: list[dict], max_len: int) -> dict:

@@ -290,6 +290,39 @@ def test_prefill_decode_consistent_with_forward(arch):
         torch.testing.assert_close(got, ref, **TOL)
 
 
+LM_ARCHS = [a for a in port_configs.ARCH_IDS
+            if port_configs.get_smoke_config(a).family != "audio"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_init_cache_matches_what_prefill_builds(arch, dtype):
+    """Each layer's empty cache has the keys, shapes and dtypes of the
+    one its prefill builds (12 tokens: past the window of gemma3's ring
+    layers), and a decode step runs from the empty cache at step 0."""
+    cfg = port_configs.get_smoke_config(arch)
+    model = build_model(cfg, dtype, device=CPU)
+    model.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(3)
+    img = (t(rng.standard_normal((2, cfg.vision_tokens, cfg.d_model)))
+           if cfg.vision_tokens else None)
+    toks = t(rng.integers(0, cfg.vocab, (2, 12)))
+    with torch.no_grad():
+        _, built = model.prefill(toks, max_len=24, image_embeds=img)
+        empty = model.init_cache(2, 24)
+        assert empty["step"] == 0
+        assert len(empty["layers"]) == len(built["layers"]) == cfg.n_layers
+        for i, (e, b) in enumerate(zip(empty["layers"], built["layers"])):
+            assert set(e) == set(b), i
+            for name in e:
+                assert e[name].shape == b[name].shape, (i, name)
+                assert e[name].dtype == b[name].dtype, (i, name)
+                assert not e[name].any(), (i, name)
+        logits, after = model.decode_step(empty, toks[:, :1])
+    assert logits.shape == (2, cfg.vocab)
+    assert torch.isfinite(logits).all() and after["step"] == 1
+
+
 # ---------------------------------------------------------------------------
 # Init, conversion, the API around the model
 # ---------------------------------------------------------------------------
