@@ -20,10 +20,18 @@ Phases, one JSON line each:
      instruct at published widths cut to 5 layers and 8 held experts,
      bf16, 1024 sessions at position 2,199 of a 3,072-position latent
      cache (32 prefilled prompts, each cache repeated 32 times): three
-     ``decode_step``s launch the kernel once a layer and nothing else,
-     and the first step's logits are held against the same step through
-     the plain chain by the cell's measure and limits; the step's time,
-     and the plain chain's;
+     ``decode_step``s launch the latent kernel once a layer, the held
+     experts' once an MoE layer, and nothing else, and the first step's
+     logits are held against the same step through both plain chains by
+     the cell's measure and limits; the step's time, the plain chains',
+     and the most slots a held expert took in a step;
+  1d. held  -- ``held_expert_ffn`` (the held experts' decode FFN) at the
+     decode cell's shape, 1024 tokens routed by a seeded router over 384
+     experts, 8 held, published widths: held, with its plain version,
+     against the f64 product, where its largest error must be at most
+     1.1x the plain version's, and bitwise equal over two calls; its
+     time, the plain version's, the dense chain's it replaced, and the
+     least time by bytes;
   3. mv     -- the coded LM head of phi3-mini-3.8b: ``compile_plan`` over
      a random (3072, 32064) head with ``CodedConfig``'s defaults (n=16
      workers, s=2 stragglers, Alg. 1), then ``plan.matvec`` for a decode
@@ -255,6 +263,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -285,6 +294,9 @@ from repro_torch.kernels import (  # noqa: E402
     cyclic_encode_plain,
     decode_matmul,
     decode_matmul_plain,
+    held_expert_ffn,
+    held_expert_ffn_plain,
+    held_slots,
     launch_counts,
     mla_decode_attention,
     mla_decode_attention_plain,
@@ -340,6 +352,8 @@ TRACE_NAMES = {
     "cyclic_encode": ("cyclic_encode_kernel",),
     "decode_matmul": ("decode_rows_kernel", "decode_transposed_kernel"),
     "mla_decode_attention": ("mla_decode_kernel",),
+    # the last of its five launches a call
+    "held_expert_ffn": ("held_combine_kernel",),
 }
 
 SOURCES = {
@@ -711,24 +725,36 @@ def phase_mla_step(seed: int, dev, steps: int = 3, reps: int = 5
         cache["step"] = pos + i
         return model.decode_step(cache, toks[:, i:i + 1])[0]
 
+    held = [blk.held_tokens for blk in model.layers
+            if hasattr(blk, "held_tokens")]
     with torch.inference_mode():
-        real = mla_module.takes
-        mla_module.takes = lambda *route: False
+        real = mla_module.takes, moe_module.takes
+        mla_module.takes = moe_module.takes = lambda *route: False
         try:
             reset_launch_counts()
             want = step_at(0)
             plain_ms = cuda_ms(lambda: step_at(0), reps)
             expect_counts("mla step (plain chain)", launch_counts())
         finally:
-            mla_module.takes = real
+            mla_module.takes, moe_module.takes = real
         reset_launch_counts()
-        got = step_at(0)
+        most = 0             # the most slots a held expert took in a step
+
+        def counted_step(i: int) -> torch.Tensor:
+            nonlocal most
+            before = torch.stack(held)
+            out = step_at(i)
+            most = max(most, int((torch.stack(held) - before).max()))
+            return out
+
+        got = counted_step(0)
         for i in range(1, steps):
-            step_at(i)
+            counted_step(i)
         torch.cuda.synchronize()
         counts = launch_counts()
         expect_counts("mla step", counts,
-                      mla_decode_attention=steps * cfg.n_layers)
+                      mla_decode_attention=steps * cfg.n_layers,
+                      held_expert_ffn=steps * len(held))
         ms = cuda_ms(lambda: step_at(0), reps)
     errs = ((got.float() - want.float()).abs().amax(1)
             / want.float().abs().amax(1))
@@ -737,7 +763,7 @@ def phase_mla_step(seed: int, dev, steps: int = 3, reps: int = 5
     row = {"case": f"{MLA_ARCH} decode_step B={b} L={pos + 1} "
                    f"({cfg.n_layers} layers)",
            "steps": steps, "logits_rel_err": err, "step_ms": ms,
-           "plain_step_ms": plain_ms,
+           "plain_step_ms": plain_ms, "held_slots_most": most,
            "finite": bool(torch.isfinite(got).all())}
     emit("mla_step", launches=counts, **row)
     if not row["finite"] or any(err[k] > limit
@@ -747,6 +773,110 @@ def phase_mla_step(seed: int, dev, steps: int = 3, reps: int = 5
                              f"{row['finite']}")
     del model, cache, want, got
     return counts, row
+
+
+# ---------------------------------------------------------------------------
+# Phase 1d: the held experts' decode FFN
+# ---------------------------------------------------------------------------
+
+# one decode step of the cell's MoE layer: 1024 tokens routed over 384
+# experts, top 8, 8 held, at Kimi-K2's widths
+HELD_TOKENS, HELD_LAYERS = 1024, 4
+
+
+def held_f64(x, w_gate, w_up, w_down, weights, key, held: int
+             ) -> torch.Tensor:
+    """The held experts' FFN in f64 over each expert's routed tokens,
+    nothing rounded: the yardstick of the kernel's and the plain
+    version's error."""
+    out = torch.zeros(x.shape, dtype=torch.float64, device=x.device)
+    for e in range(held):
+        tok, place = (key == e).nonzero(as_tuple=True)
+        if not len(tok):
+            continue
+        xe = x[tok].double()
+        h = F.silu(xe @ w_gate[e].double()) * (xe @ w_up[e].double())
+        out.index_add_(0, tok, (h @ w_down[e].double())
+                       * weights[tok, place].double()[:, None])
+    return out
+
+
+def phase_held(seed: int, dev, reps: int = 20) -> dict:
+    """Phase 1d -> the kernel's row.  ``held_expert_ffn`` at the decode
+    cell's shapes on seeded routing, its slot lists built on the card:
+    held, with its plain version, against the f64 product, where its
+    largest error must be at most 1.1x the plain version's; its time
+    (the slot lists built on the card, then the products) against the
+    least time by bytes (each held expert's weights read once, the routed
+    rows read and the f32 output written once), the plain version's, and
+    the dense chain's it replaced (every held expert over every token,
+    weighted and summed in f32) as the library yardstick."""
+    cfg = get_config(MLA_ARCH)
+    moe = dataclasses.replace(cfg.moe, n_held=MLA_HELD, held_from=0)
+    d, fe, held, t = cfg.d_model, moe.d_expert, moe.held, HELD_TOKENS
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+
+    def draw(*shape, std=0.02, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
+
+    x = draw(t, d, std=1.0)
+    router, bias = draw(d, moe.n_experts, dtype=torch.float32), \
+        draw(moe.n_experts, std=0.01, dtype=torch.float32)
+    w_gate, w_up, w_down = draw(held, d, fe), draw(held, d, fe), \
+        draw(held, fe, d)
+    w, top_e = moe_module.route_sigmoid(router, bias, x, moe)
+    key = torch.where(top_e < held, top_e, held)
+    args = (x, w_gate, w_up, w_down, w, key)
+
+    before = held_expert_ffn.launches
+    got = held_expert_ffn(*args)
+    if held_expert_ffn.launches != before + 1:
+        raise AssertionError("held_expert_ffn: not one launch a call")
+    again = held_expert_ffn(*args)
+    plain = held_expert_ffn_plain(*args)
+    ref = held_f64(x, w_gate, w_up, w_down, w, key, held)
+
+    def dense():
+        """Every held expert over every token, weighted and summed in
+        f32: the decode arm this kernel replaced."""
+        cw = torch.zeros((t, held + 1), dtype=torch.float32, device=dev)
+        cw.scatter_(1, key, w)
+        ye = torch.matmul(F.silu(torch.matmul(x, w_gate))
+                          * torch.matmul(x, w_up), w_down)
+        return (ye.float() * cw[:, :held].t()[:, :, None]).sum(0)
+
+    ends = held_slots(key, held)[1]
+    counts = torch.diff(ends[:held], prepend=ends.new_zeros(1)).tolist()
+    n = sum(counts)
+    nbytes = 3 * held * d * fe * 2 + n * d * 2 + t * d * 4
+    flops = 2 * n * 3 * d * fe
+    row = {
+        "name": "held_expert_ffn",
+        "case": f"t={t} d={d} fe={fe} held={held} k={moe.top_k}",
+        "dtype": "bfloat16", "shape": list(got.shape),
+        "slots": n, "slots_per_expert": counts, "slots_most": max(counts),
+        "max_abs_err": float((got.double() - ref).abs().max()),
+        "plain_max_abs_err": float((plain.double() - ref).abs().max()),
+        "dense_max_abs_err": float((dense().double() - ref).abs().max()),
+        "bitwise_repeat": bool(torch.equal(got, again)),
+        "ms": cuda_ms(lambda: held_expert_ffn(*args), reps),
+        "plain_ms": cuda_ms(lambda: held_expert_ffn_plain(*args), 3),
+        "library_ms": cuda_ms(dense, reps),
+    }
+    row["ok"] = (row["max_abs_err"] <= 1.1 * row["plain_max_abs_err"]
+                 and row["bitwise_repeat"])
+    row["bound_ms"], row["bound_by"] = bound(nbytes, flops, BF16_FLOPS_PER_S)
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    row["step_ms"] = HELD_LAYERS * row["ms"]
+    row["step_library_ms"] = HELD_LAYERS * row["library_ms"]
+    row["bytes"], row["flops"] = nbytes, flops
+    emit("kernels", **row)
+    if not row["ok"]:
+        raise AssertionError(f"held_expert_ffn: error {row['max_abs_err']} "
+                             f"against f64, the plain version's "
+                             f"{row['plain_max_abs_err']}, bitwise repeat "
+                             f"{row['bitwise_repeat']}")
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -1373,12 +1503,17 @@ def no_drop(model):
     if cfg.moe is None:
         yield cfg
         return
-    model.cfg = cfg.with_(moe=dataclasses.replace(
+    wide = cfg.with_(moe=dataclasses.replace(
         cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    # the model and each layer, which keeps the config it was built with
+    holders = [m for m in model.modules() if getattr(m, "cfg", None) is cfg]
+    for m in holders:
+        m.cfg = wide
     try:
-        yield model.cfg
+        yield wide
     finally:
-        model.cfg = cfg
+        for m in holders:
+            m.cfg = cfg
 
 
 def route_agreement(calls: list, n_layers: int, b: int, p: int,
@@ -4469,6 +4604,9 @@ def main(argv=None) -> int:
     mla_counts, mla_step = phase_mla_step(args.seed, dev)
     gc.collect()
     torch.cuda.empty_cache()
+    held_row = phase_held(args.seed, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     rng = np.random.default_rng(args.seed)
     mv, (mv_counts,) = phase_mv(args.seed, dev, gen, rng)
@@ -4575,6 +4713,19 @@ def main(argv=None) -> int:
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": None,
         "shape": row["shape"], "case": row["case"],
+    })
+    # the held experts' kernel at the decode cell's shape (phase 1d), with
+    # the launches of the cell's decode steps (1c)
+    table.append({
+        "name": "held_expert_ffn", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/held_experts.cu",
+        "replaces": None, "launches": mla_counts["held_expert_ffn"],
+        "launches_from": f"{mla_step['steps']} x {mla_step['case']}",
+        "max_abs_err": held_row["max_abs_err"], "ms": held_row["ms"],
+        "plain_ms": held_row["plain_ms"], "bound_ms": held_row["bound_ms"],
+        "bound_by": held_row["bound_by"],
+        "library_ms": held_row["library_ms"],
+        "shape": held_row["shape"], "case": held_row["case"],
     })
     print(json.dumps({"kernels": table}), flush=True)
     print(smi, flush=True)

@@ -1,8 +1,8 @@
 """Build and load the port's CUDA kernels, at first use.
 
-The four sources in ``csrc/`` export a plain C interface (no PyTorch
+The five sources in ``csrc/`` export a plain C interface (no PyTorch
 headers), so ``nvcc`` builds them in seconds.  Each source compiles to
-an object in its own ``nvcc`` process, all four at once, and one more
+an object in its own ``nvcc`` process, all at once, and one more
 ``nvcc`` links them into a shared library under ``build/repro_torch/``
 at the root of the checkout.  The file name carries a hash of the
 sources and flags, so an edited source is rebuilt and an unchanged one
@@ -36,7 +36,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("bcsr_matmul.cu", "cyclic_encode.cu", "decode_matmul.cu",
-           "mla_decode.cu")
+           "mla_decode.cu", "held_experts.cu")
 HEADERS = ("common.cuh",)
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC")
@@ -58,6 +58,9 @@ _SIGNATURES = {
     # q_hat, q_pe, c, kr, out, geometry (12 int64: see mla_decode.cu),
     # scale, stream
     "repro_mla_decode": (_P, _P, _P, _P, _P, _P, _F, _P),
+    # x, w_gate, w_up, w_down, weights, key, order, ends, xs, h, y, out,
+    # geometry (6 int64: see held_experts.cu), stream
+    "repro_held_experts": (_P,) * 14,
 }
 
 _lib: ctypes.PyDLL | None = None

@@ -1,6 +1,8 @@
 // Shared helpers for the port's hand-written sm_90a kernels.
 #pragma once
 
+#include <cuda.h>
+
 #include <cstdint>
 #include <mutex>
 
@@ -146,6 +148,12 @@ __device__ __forceinline__ void mbar_wait(std::uint64_t* bar, unsigned parity) {
   } while (!done);
 }
 
+// Arrive once, announcing nothing.
+__device__ __forceinline__ void mbar_arrive(std::uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
 // One bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
 // from global to shared memory, completed on `bar`.
 __device__ __forceinline__ void bulk_copy_g2s(void* smem, const void* gmem,
@@ -156,6 +164,71 @@ __device__ __forceinline__ void bulk_copy_g2s(void* smem, const void* gmem,
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(smem)),
       "l"(gmem), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// --- wgmma (sm_90a): a warpgroup's asynchronous products ------------------
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from moving reads or writes of accumulators across
+// the asynchronous products.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// A tile of 64 rows of 128 bytes (64 bf16) in the 128-byte swizzle, as a
+// TMA box of 64 x 64 bf16 lays it down: 8 KB.
+constexpr int kSwizzledTileBytes = 64 * 128;
+
+// wgmma's shared-memory descriptors for the 128-byte swizzle: rows of 128
+// bytes, 8-row groups 1024 bytes apart.  K-major: the 16 columns of one
+// step lie inside a row (advance 32 bytes a step).  MN-major: the operand's
+// contiguous dimension runs along the rows, in 64-column chunks of 64 rows
+// kSwizzledTileBytes apart (advance 16 rows, 2048 bytes, a step).
+__device__ __forceinline__ std::uint64_t kmajor(unsigned addr) {
+  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+__device__ __forceinline__ std::uint64_t mnmajor(unsigned addr) {
+  return ((addr & 0x3FFFF) >> 4) |
+         ((std::uint64_t)(kSwizzledTileBytes >> 4) << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime: no link to
+// libcuda.  Null when the driver has none.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  static std::once_flag once;
+  std::call_once(once, [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(f);
+  });
+  return fn;
 }
 
 __host__ __device__ inline bool aligned16(const void* p) {

@@ -32,10 +32,7 @@
 //     P times its half of the tile's c (64 x 256) into its f32 output
 //     (128 registers a thread);
 //   * the output is divided by the row sums and written once, bf16.
-#include <cuda.h>
-
 #include <cmath>
-#include <mutex>
 
 #include "common.cuh"
 
@@ -72,11 +69,6 @@ struct MlaArgs {
   int qn_rows_outer, qp_rows_outer;
 };
 
-__device__ __forceinline__ void mbar_arrive(std::uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
 // A 64 x 64 box of a 3-d tensor map (columns, rows, sessions) into shared
 // memory, completed on `bar`.
 __device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
@@ -90,34 +82,9 @@ __device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// wgmma's shared-memory descriptors for the 128-byte swizzle: rows of 128
-// bytes, 8-row groups 1024 bytes apart.  K-major (Q, the keys, P): the 16
-// columns of one step lie inside a row.  MN-major (the values): 64-column
-// chunks kChunkBytes apart along N.
-__device__ __forceinline__ std::uint64_t kmajor(unsigned addr) {
-  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
-}
-__device__ __forceinline__ std::uint64_t mnmajor(unsigned addr) {
-  return ((addr & 0x3FFFF) >> 4) | ((std::uint64_t)(kChunkBytes >> 4) << 16) |
-         (64ull << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Keeps the compiler from moving reads or writes of accumulators across
-// the asynchronous products.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
+// Q, the keys and P are K-major operands (kmajor), the values MN-major
+// (mnmajor: 64-column chunks kChunkBytes apart, a chunk's 64 rows).
+static_assert(kChunkBytes == kSwizzledTileBytes, "mnmajor's chunk stride");
 
 // The two consumer warpgroups meet here (barrier 0 is the block's).
 __device__ __forceinline__ void consumers_sync() {
@@ -394,34 +361,6 @@ __global__ void __launch_bounds__(kThreads, 1)
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     consume(smem, p, tiles, wg);
   }
-}
-
-// cuTensorMapEncodeTiled, from the driver through the runtime: no link to
-// libcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  static std::once_flag once;
-  std::call_once(once, [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(f);
-  });
-  return fn;
 }
 
 // A map over a bf16 tensor (sessions, rows, cols) with unit column stride,

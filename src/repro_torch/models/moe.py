@@ -44,6 +44,12 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import MoEConfig
+from ..kernels.held_experts import (
+    held_expert_ffn,
+    held_expert_ffn_plain,
+    held_slots,
+    takes,
+)
 from ..obs.trace import scope
 from ..parallel.ctx import (
     all_gather,
@@ -346,42 +352,32 @@ def route_sigmoid(router: torch.Tensor, bias: torch.Tensor,
 
 
 def _decoding(x: torch.Tensor) -> bool:
-    """One token per row: a decode step, whose host must not wait for the
-    card, so every held expert runs over every token (``_held_dense``:
-    held x t rows, ~8 x 1024 for ~171 chosen slots at the decode cell's
-    batch).  A prompt takes only the chosen slots (``_held_gathered``),
-    sized by one host read of the held counts."""
+    """One token per row: a decode step.  Its host must not wait for the
+    card, so the held experts run in ``held_expert_ffn``, which builds its
+    slot lists on the card and reads each expert's weights once for the
+    slots routed to it.  A prompt's one host read of the held counts
+    (``_held_gathered``) is set-up, in no timed step."""
     return x.shape[1] == 1
 
 
-def _held_dense(p: dict, tokens, w, key, held: int) -> torch.Tensor:
-    """Every held expert over every token; each product weighted by the
-    token's routing weight there, 0 where it did not choose it; summed in
-    f32 -> (t, d)."""
-    t = tokens.shape[0]
-    cw = torch.zeros((t, held + 1), dtype=torch.float32,
-                     device=tokens.device)
-    cw.scatter_(1, key, w)        # column ``held`` takes the slots not here
-    ye = torch.matmul(F.silu(torch.matmul(tokens, p["w_gate"]))
-                      * torch.matmul(tokens, p["w_up"]), p["w_down"])
-    return (ye.float() * cw[:, :held].t()[:, :, None]).sum(0)
-
-
-def _held_gathered(p: dict, tokens, w, key, per, moe) -> torch.Tensor:
-    """Only the chosen slots of the held experts, gathered in expert order
-    and each expert's padded to the most any holds (one host read sizes
-    them): one batched product per weight -> (t, d) f32."""
+def _held_gathered(p: dict, tokens, w, key, moe) -> torch.Tensor:
+    """Only the chosen slots of the held experts, in the slot lists'
+    expert order (``held_slots``), each expert's padded to the most any
+    holds (one host read of the counts sizes them): one batched product
+    per weight -> (t, d) f32."""
     t, d = tokens.shape
     held = moe.held
-    sizes = per[:held].tolist()
-    n, m = sum(sizes), max(sizes)
+    order, ends = held_slots(key, held)
+    bounds = [0, *ends[:held].tolist()]
+    n = bounds[-1]
+    m = max(b - a for a, b in zip(bounds, bounds[1:]))
     out = torch.zeros((t, d), dtype=torch.float32, device=tokens.device)
     if not n:
         return out
-    slots = torch.argsort(key, stable=True)[:n]
+    slots = order[:n]
     rows = torch.div(slots, moe.top_k, rounding_mode="floor")
-    grp = key[slots]
-    first = torch.cumsum(per, 0) - per
+    grp = key.reshape(-1)[slots]
+    first = torch.cat([ends.new_zeros(1), ends[:held]])
     dest = grp * m + torch.arange(n, device=tokens.device) - first[grp]
     xe = tokens.new_zeros((held * m, d))
     xe[dest] = tokens[rows]
@@ -398,7 +394,10 @@ def moe_block_held(p: dict, x: torch.Tensor, moe: MoEConfig,
     """x (B, S, d) -> (out, aux = 0).  Routes every token over all
     ``n_experts``; computes each chosen slot of a held expert (no
     capacity: nothing drops), weighted and summed per token in f32, then
-    adds the shared expert once: ``_held_dense`` in a decode step,
+    adds the shared expert once: ``held_expert_ffn`` in a decode step
+    (its plain version where the kernel does not take the tensors: that
+    one reads the held counts on the host, so a decode step on the card
+    in f32 or f16, or at other widths, waits for the card once a layer),
     ``_held_gathered`` over a prompt (``_decoding``).  The
     held experts' slot counts, when ``counts`` (n_held,) is given, are
     added into it on the device."""
@@ -408,18 +407,21 @@ def moe_block_held(p: dict, x: torch.Tensor, moe: MoEConfig,
     tokens = x.reshape(t, d)
     with scope("moe.route"):
         w, top_e = route_sigmoid(p["router"], p["bias"], tokens, moe)
-        local = top_e.reshape(-1) - e0
-        mine = (local >= 0) & (local < held)
-        key = torch.where(mine, local, held)
-        per = torch.zeros(held + 1, dtype=torch.long, device=x.device)
-        per.scatter_add_(0, key, torch.ones_like(key))
+        local = top_e - e0
+        key = torch.where((local >= 0) & (local < held), local, held)
         if counts is not None:
-            counts.add_(per[:held])
+            flat = key.reshape(-1)
+            per = torch.zeros(held + 1, dtype=torch.long, device=x.device)
+            counts.add_(per.scatter_add_(0, flat, torch.ones_like(flat))
+                        [:held])
     with scope("moe.experts"):
         if _decoding(x):
-            out = _held_dense(p, tokens, w, key.view(t, -1), held)
+            ffn = (held_expert_ffn
+                   if takes(x.device, x.dtype, d, moe.d_expert, held)
+                   else held_expert_ffn_plain)
+            out = ffn(tokens, p["w_gate"], p["w_up"], p["w_down"], w, key)
         else:
-            out = _held_gathered(p, tokens, w, key, per, moe)
+            out = _held_gathered(p, tokens, w, key, moe)
     with scope("moe.shared"):
         y = out.to(x.dtype)
         if moe.n_shared_experts:

@@ -154,7 +154,8 @@ def test_pipe_children_report_themselves(operand, pipe_clusters, backend):
         assert (rep["device"], rep["backend"]) == ("cpu", backend)
         assert rep["launches"] == {"bcsr_matmul": 0, "cyclic_encode": 0,
                                    "decode_matmul": 0,
-                                   "mla_decode_attention": 0}
+                                   "mla_decode_attention": 0,
+                                   "held_expert_ffn": 0}
         assert (rep["device_name"], rep["memory_allocated"]) == (None, 0)
 
 

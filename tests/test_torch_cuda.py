@@ -459,7 +459,8 @@ def test_plan_on_the_card_matches_the_cpu(hopper):
     after = launch_counts()
     assert {k: after[k] - before[k] for k in after} == {
         "bcsr_matmul": 1, "cyclic_encode": 1, "decode_matmul": 1,
-        "mla_decode_attention": 0}
+        "mla_decode_attention": 0,
+        "held_expert_ffn": 0}
     assert got.shape == (130, 60) and got.is_contiguous()
     np.testing.assert_allclose(got.cpu().numpy(),
                                cpu.matmat(t(B), done).numpy(),
@@ -472,7 +473,8 @@ def test_plan_on_the_card_matches_the_cpu(hopper):
     after = launch_counts()
     assert {k: after[k] - before[k] for k in after} == {
         "bcsr_matmul": 0, "cyclic_encode": 0, "decode_matmul": 1,
-        "mla_decode_attention": 0}
+        "mla_decode_attention": 0,
+        "held_expert_ffn": 0}
     assert got.dtype == torch.bfloat16 and got.shape == (3, 130)
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                cpu.executor.decode(y, done).float().numpy(),
@@ -542,7 +544,8 @@ def test_coded_logits_launch_counts(hopper):
     after = launch_counts()
     assert {k: after[k] - before[k] for k in after} == {
         "bcsr_matmul": 0, "cyclic_encode": 1, "decode_matmul": 0,
-        "mla_decode_attention": 0}
+        "mla_decode_attention": 0,
+        "held_expert_ffn": 0}
     assert eng.coded.backend == "cuda"
     cpu = smoke_engine("cpu", dict(enabled=True, n_workers=6, stragglers=2,
                                    backend="cuda"))
@@ -555,7 +558,8 @@ def test_coded_logits_launch_counts(hopper):
         after = launch_counts()
         assert {k: after[k] - before[k] for k in after} == {
             "bcsr_matmul": 1, "cyclic_encode": 0, "decode_matmul": 1,
-            "mla_decode_attention": 0}
+            "mla_decode_attention": 0,
+            "held_expert_ffn": 0}
         assert got.dtype == torch.float32 and got.shape == (2, 256)
         np.testing.assert_allclose(got.cpu().numpy(),
                                    cpu.coded_logits(hidden, done).numpy(),
@@ -625,7 +629,8 @@ def test_memory_cluster_matvec_on_the_card(hopper):
             assert {k: after[k] - before[k] for k in after} == {
                 "bcsr_matmul": plan.k, "cyclic_encode": 0,
                 "decode_matmul": 1,
-                "mla_decode_attention": 0}
+                "mla_decode_attention": 0,
+                "held_expert_ffn": 0}
             rep = cl.last_report
             assert (rep.deaths, rep.requeues) == (0, 0)
             assert got.device.type == "cuda" and got.shape == (2, 288)
@@ -665,7 +670,8 @@ def test_process_cluster_children_compute_on_the_card(hopper, transport):
             after = launch_counts()
             assert {k: after[k] - before[k] for k in after} == {
                 "bcsr_matmul": 0, "cyclic_encode": 0, "decode_matmul": 1,
-                "mla_decode_attention": 0}
+                "mla_decode_attention": 0,
+                "held_expert_ffn": 0}
             assert (cl.last_report.deaths, cl.last_report.requeues) == (0, 0)
             assert torch.equal(got, plan.matvec(x.to(hopper), done))
         reports = tr.reports()
@@ -794,7 +800,8 @@ def test_coded_moe_on_the_card_matches_moe_block(hopper):
     after = launch_counts()
     assert {k: after[k] - before[k] for k in after} == {
         "bcsr_matmul": 0, "cyclic_encode": 96, "decode_matmul": 0,
-        "mla_decode_attention": 0}
+        "mla_decode_attention": 0,
+        "held_expert_ffn": 0}
     assert set(cm.backends()) == {"cuda"}
     ref, aux_ref = moe_block(p, x, moe)
     for done in (None, np.asarray([True, False, True, True, False, True]),
@@ -805,7 +812,8 @@ def test_coded_moe_on_the_card_matches_moe_block(hopper):
         after = launch_counts()
         assert {k: after[k] - before[k] for k in after} == {
             "bcsr_matmul": 96, "cyclic_encode": 0, "decode_matmul": 96,
-            "mla_decode_attention": 0}
+            "mla_decode_attention": 0,
+            "held_expert_ffn": 0}
         np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
                                    rtol=1e-4, atol=1e-4)
         assert abs(float(aux) - float(aux_ref)) <= 1e-6
@@ -920,7 +928,8 @@ def test_retune_on_the_card_launches_one_encode(hopper):
     after = launch_counts()
     assert {k: after[k] - before[k] for k in after} == {
         "bcsr_matmul": 0, "cyclic_encode": 1, "decode_matmul": 0,
-        "mla_decode_attention": 0}
+        "mla_decode_attention": 0,
+        "held_expert_ffn": 0}
     assert tr.retunes == [{"step": 0, "backend": "cuda", "changed": False}]
     head = params["head"].detach()
     assert plan._A is not head and torch.equal(plan._A, head)
@@ -934,7 +943,8 @@ def test_retune_on_the_card_launches_one_encode(hopper):
     after = launch_counts()
     assert {k: after[k] - before[k] for k in after} == {
         "bcsr_matmul": 1, "cyclic_encode": 0, "decode_matmul": 1,
-        "mla_decode_attention": 0}
+        "mla_decode_attention": 0,
+        "held_expert_ffn": 0}
     np.testing.assert_allclose(got.cpu().numpy(), (x @ head).cpu().numpy(),
                                rtol=2e-4, atol=2e-4)
 
@@ -1107,6 +1117,233 @@ def test_mla_decode_on_the_card_routes_by_dtype_and_widths(
         assert err <= 4e-2, float(err)
     else:
         assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# The held experts' decode FFN
+# ---------------------------------------------------------------------------
+
+# Kimi-K2's hidden and expert widths, the decode cell's 8 held experts,
+# top 8, and its 1024 tokens a step
+HELD_D, HELD_FE, HELD_N, HELD_K, HELD_T = 7168, 2048, 8, 8, 1024
+
+
+def held_weights(dev, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return tuple((torch.randn(shape, generator=gen, device=dev) * 0.02)
+                 .bfloat16() for shape in ((HELD_N, HELD_D, HELD_FE),
+                                           (HELD_N, HELD_D, HELD_FE),
+                                           (HELD_N, HELD_FE, HELD_D)))
+
+
+def held_routing(dev, case, seed=0, t=HELD_T):
+    """(x, weights, key) of t tokens (the cell's 1024): seeded tokens routed by
+    a seeded router over 384 experts (8 held), or an edge of the counts:
+    every token on one expert (count t, the others none), every token's k
+    places all held (every count t), or a few tokens, one of them with
+    all k places held and most with none."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import route_sigmoid
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    k, held = HELD_K, HELD_N
+    x = torch.randn((t, HELD_D), generator=gen, device=dev).bfloat16()
+    w = torch.rand((t, k), generator=gen, device=dev) + 0.1
+    key = torch.full((t, k), held, dtype=torch.long, device=dev)
+    if case == "seeded":
+        moe = dataclasses.replace(get_config("kimi-k2-instruct").moe,
+                                  n_held=held, held_from=0)
+        router = torch.randn((HELD_D, moe.n_experts), generator=gen,
+                             device=dev) * 0.02
+        bias = torch.randn(moe.n_experts, generator=gen, device=dev) * 0.01
+        w, top = route_sigmoid(router, bias, x, moe)
+        key = torch.where(top < held, top, held)
+    elif case == "one_expert":
+        key[:, 3] = 2
+    elif case == "all_held":
+        key = torch.argsort(torch.rand((t, held), generator=gen, device=dev),
+                            dim=1)[:, :k]
+    else:
+        key[0, :3] = torch.tensor([0, 7, 1])
+        key[1] = torch.tensor([2, 4, 6, 0, 1, 3, 7, 5])
+        key[700, 5] = 3
+    return x, w.contiguous(), key.contiguous()
+
+
+def held_args(dev, case, t=HELD_T):
+    x, w, key = held_routing(dev, case, t=t)
+    return (x, *held_weights(dev), w, key)
+
+
+def card_slot_lists(args):
+    """The slot lists ``order`` and ``ends`` the kernel built on the card."""
+    from repro_torch.kernels.held_experts import _launch, scratch_layout
+    t = args[0].shape[0]
+    _, scratch = _launch(*args)
+    (at_order, at_ends, *_), _ = scratch_layout(t, HELD_D, HELD_FE, HELD_N,
+                                               HELD_K)
+    return (scratch[at_order:at_order + t * HELD_K * 8].view(torch.int64),
+            scratch[at_ends:at_ends + (HELD_N + 1) * 8].view(torch.int64))
+
+
+def held_f64(x, w_gate, w_up, w_down, weights, key):
+    """The held experts' FFN in f64 over each expert's routed tokens,
+    nothing rounded."""
+    out = torch.zeros(x.shape, dtype=torch.float64, device=x.device)
+    for e in range(w_gate.shape[0]):
+        tok, place = (key == e).nonzero(as_tuple=True)
+        xe = x[tok].double()
+        h = (torch.nn.functional.silu(xe @ w_gate[e].double())
+             * (xe @ w_up[e].double()))
+        out.index_add_(0, tok, (h @ w_down[e].double())
+                       * weights[tok, place].double()[:, None])
+    return out
+
+
+@pytest.mark.parametrize("case", ["seeded", "one_expert", "all_held",
+                                  "sparse"])
+def test_held_expert_ffn_against_f64(hopper, case):
+    """At the decode cell's shapes the kernel's slot lists are the plain
+    builder's, its largest error against the f64 product is at most 1.1x
+    the plain version's (both round h to bf16 once and keep the rest in
+    f32), one launch a call, and two calls give the same bits."""
+    from repro_torch.kernels import (
+        held_expert_ffn,
+        held_expert_ffn_plain,
+        held_slots,
+    )
+    args = held_args(hopper, case)
+    before = held_expert_ffn.launches
+    got = held_expert_ffn(*args)
+    assert held_expert_ffn.launches == before + 1
+    order, ends = card_slot_lists(args)
+    want_order, want_ends = held_slots(args[5], HELD_N)
+    assert torch.equal(order, want_order) and torch.equal(ends, want_ends)
+    assert got.shape == (HELD_T, HELD_D) and got.dtype == torch.float32
+    want = held_f64(*args)
+    err = (got.double() - want).abs().max().item()
+    plain = held_expert_ffn_plain(*args)
+    err_plain = (plain.double() - want).abs().max().item()
+    assert err <= 1.1 * err_plain, (err, err_plain)
+    # a token with no held place gets zeros
+    none = (args[5] >= HELD_N).all(1)
+    assert not got[none].any()
+    assert torch.equal(held_expert_ffn(*args), got)
+
+
+@pytest.mark.parametrize("t", [1, 1000, 2500, 4096])
+def test_held_expert_ffn_at_other_batches(hopper, t):
+    """Seeded routing of t tokens: the sort's threads own one token, none
+    (t < 1024) or several, up to 4096 tokens' 32768 places; the slot
+    lists are the plain builder's and the error against f64 at most 1.1x
+    the plain version's, bitwise on a repeat."""
+    from repro_torch.kernels import (
+        held_expert_ffn,
+        held_expert_ffn_plain,
+        held_slots,
+    )
+    args = held_args(hopper, "seeded", t=t)
+    got = held_expert_ffn(*args)
+    order, ends = card_slot_lists(args)
+    want_order, want_ends = held_slots(args[5], HELD_N)
+    assert torch.equal(order, want_order) and torch.equal(ends, want_ends)
+    want = held_f64(*args)
+    err = (got.double() - want).abs().max().item()
+    err_plain = (held_expert_ffn_plain(*args).double() - want).abs().max()
+    assert err <= 1.1 * err_plain.item(), (err, err_plain.item())
+    assert torch.equal(held_expert_ffn(*args), got)
+
+
+def test_held_expert_ffn_raises_instead_of_falling_back(hopper):
+    from repro_torch.kernels import held_expert_ffn
+    x, w_gate, w_up, w_down, w, key = held_args(hopper, "sparse")
+    with pytest.raises(TypeError, match="bfloat16"):
+        held_expert_ffn(x.float(), w_gate, w_up, w_down, w, key)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        held_expert_ffn(*(a.contiguous() for a in (
+            x[:, :96], w_gate[:, :96], w_up[:, :96], w_down[:, :, :96])),
+            w, key)
+    with pytest.raises(ValueError, match="expected"):
+        held_expert_ffn(x, w_gate, w_up, w_down, w, key.cpu())
+
+
+def held_layer(dev, seed=0):
+    """A held-expert MoE layer at Kimi-K2's widths, 8 held, bf16."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import moe_param_shapes
+
+    moe = dataclasses.replace(get_config("kimi-k2-instruct").moe,
+                              n_held=HELD_N, held_from=0)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(name, shape):
+        if isinstance(shape, dict):
+            return {n: draw(n, s) for n, s in shape.items()}
+        t = torch.randn(shape, generator=gen, device=dev) * 0.02
+        return t if name in ("router", "bias") else t.bfloat16()
+
+    return draw("", moe_param_shapes(HELD_D, moe)), moe
+
+
+def test_moe_block_held_decode_step_makes_no_host_read(hopper):
+    """A decode-shaped input (one token a row) runs the held experts with
+    no synchronising op: the slot lists are built and read on the card."""
+    from repro_torch.kernels import held_expert_ffn
+    from repro_torch.models.moe import moe_block_held
+    p, moe = held_layer(hopper)
+    x = torch.randn((64, 1, HELD_D), device=hopper).bfloat16()
+    counts = torch.zeros(HELD_N, dtype=torch.long, device=hopper)
+    with torch.inference_mode():
+        want, _ = moe_block_held(p, x, moe)     # builds the library
+        torch.cuda.synchronize()
+        before = held_expert_ffn.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got, _ = moe_block_held(p, x, moe, counts)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert held_expert_ffn.launches == before + 1
+    assert torch.equal(got, want)
+    assert int(counts.sum()) <= 64 * moe.top_k
+
+
+def test_kimi_decode_step_launches_the_held_kernel_once_a_moe_layer(
+        hopper, monkeypatch):
+    """One ``decode_step`` of the benchmark cell's model at batch 4: one
+    ``held_expert_ffn`` launch an MoE layer, and logits within the cell's
+    median limit (4e-2 of the largest) of the same step through the held
+    experts' plain version."""
+    import dataclasses
+
+    import repro_torch.models.moe as moe_module
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import held_expert_ffn
+    from repro_torch.models import build_model
+
+    cfg = get_config("kimi-k2-instruct").with_(n_layers=5)
+    cfg = cfg.with_(moe=dataclasses.replace(cfg.moe, n_held=8, held_from=0))
+    model = build_model(cfg, torch.bfloat16, device=hopper)
+    model.init(torch.Generator(device=hopper).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (4, 70), device=hopper,
+                         generator=torch.Generator(device=hopper)
+                         .manual_seed(1))
+    moe_layers = cfg.n_layers - cfg.first_dense
+    with torch.inference_mode():
+        _, cache = model.prefill(toks[:, :69], 96)
+        before = held_expert_ffn.launches
+        got, _ = model.decode_step(cache, toks[:, 69:])
+        assert held_expert_ffn.launches == before + moe_layers
+        cache["step"] = 69
+        monkeypatch.setattr(moe_module, "takes", lambda *route: False)
+        want, _ = model.decode_step(cache, toks[:, 69:])
+    assert held_expert_ffn.launches == before + moe_layers
+    assert torch.isfinite(got).all()
+    err = (got.float() - want.float()).abs().max() / want.abs().max()
+    assert err <= 4e-2, float(err)
 
 
 # ---------------------------------------------------------------------------

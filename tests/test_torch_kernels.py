@@ -25,6 +25,7 @@ from repro_torch.kernels import (
     decode_matmul_plain,
     decode_unknowns,
     encode_submatrices,
+    held_expert_ffn,
     launch_counts,
     mla_decode_attention,
     mla_decode_attention_plain,
@@ -435,7 +436,8 @@ def test_cpu_tensors_take_the_plain_version():
         mla_decode_attention(q_hat, q_pe, c, kr, 5, 0.3).numpy(),
         mla_decode_attention_plain(q_hat, q_pe, c, kr, 5, 0.3).numpy())
     assert launch_counts() == {"bcsr_matmul": 0, "cyclic_encode": 0,
-                               "decode_matmul": 0, "mla_decode_attention": 0}
+                               "decode_matmul": 0, "mla_decode_attention": 0,
+                               "held_expert_ffn": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -515,11 +517,12 @@ def test_launch_counters_exact_across_threads():
         assert launch_counts() == {"bcsr_matmul": 4 * per_thread,
                                    "cyclic_encode": 2 * per_thread,
                                    "decode_matmul": 2 * per_thread,
-                                   "mla_decode_attention": 0}
+                                   "mla_decode_attention": 0,
+                                   "held_expert_ffn": 0}
     finally:
         sys.setswitchinterval(old)
         for fn in (bcsr_matmul, cyclic_encode, decode_matmul,
-                   mla_decode_attention):
+                   mla_decode_attention, held_expert_ffn):
             fn.launches = saved[fn.__name__]
 
 

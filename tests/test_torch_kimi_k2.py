@@ -26,6 +26,7 @@ from repro_torch.models.mla import (
     softmax_scale,
     yarn_freqs,
 )
+from repro_torch.models.moe import _decoding as picks_decode
 from repro_torch.models.moe import moe_block_held, route_sigmoid
 
 ARCH = "kimi-k2-instruct"
@@ -190,15 +191,27 @@ def test_router_matches_the_reference_and_the_bias_moves_choices(smoke):
     assert not torch.equal(top.sort(-1).values, unbiased.sort(-1).values)
 
 
-@pytest.fixture(params=["dense", "gathered"])
+@pytest.fixture(params=["decode", "prompt"])
 def held_path(request, monkeypatch):
-    """The held experts' two paths, whatever the input's shape: every
-    token through every held expert (a decode step's), or the chosen
-    slots gathered (a prompt's)."""
+    """The held experts' two arms, named by the input each serves: a
+    decode step's (B, 1, d), slot lists built on the device and
+    ``held_expert_ffn`` (its plain version here), or a prompt's (B, S, d),
+    the chosen slots gathered after one host read.  The arm is forced
+    whatever the input's shape, so a model's prompt and steps take it
+    too; ``shaped`` gives a layer's input the arm's own shape."""
     import repro_torch.models.moe as moe
-    dense = request.param == "dense"
-    monkeypatch.setattr(moe, "_decoding", lambda x: dense)
+    decode = request.param == "decode"
+    monkeypatch.setattr(moe, "_decoding", lambda x: decode)
     return request.param
+
+
+def shaped(x, held_path):
+    """``x`` (B, S, d) as the arm's input: one token a row for a decode
+    step, as it is for a prompt; the shape alone picks that arm."""
+    if held_path == "decode":
+        x = x.reshape(-1, 1, x.shape[-1])
+    assert picks_decode(x) == (held_path == "decode")
+    return x
 
 
 def test_the_held_paths_agree(held_path):
@@ -208,8 +221,8 @@ def test_the_held_paths_agree(held_path):
     model = build_model(cfg, torch.float32, device=CPU)
     model.init(torch.Generator().manual_seed(14))
     p, moe = model.layers[2].moe, cfg.moe
-    x = torch.randn(3, 7, cfg.d_model, generator=torch.Generator()
-                    .manual_seed(15))
+    x = shaped(torch.randn(3, 7, cfg.d_model, generator=torch.Generator()
+                           .manual_seed(15)), held_path)
     got, _ = moe_block_held(p, x, moe)
     toks = x.reshape(-1, cfg.d_model)
     w, top = route_sigmoid(p["router"], p["bias"], toks, moe)
@@ -236,8 +249,8 @@ def test_two_shares_of_experts_make_the_uncut_layer(held_from, held_path):
     full = build_model(full_cfg, torch.float32, device=CPU)
     full.init(torch.Generator().manual_seed(4))
     p = full.layers[1].moe
-    x = torch.randn(2, 9, base.d_model, generator=torch.Generator()
-                    .manual_seed(8))
+    x = shaped(torch.randn(2, 9, base.d_model, generator=torch.Generator()
+                           .manual_seed(8)), held_path)
     want, _ = moe_block_held(p, x, full_cfg.moe)
 
     def share(e0, shared):

@@ -187,7 +187,8 @@ def test_launch_counter_is_listed_and_reset():
         assert mla_decode_attention.launches == 0
         assert set(launch_counts()) == {"bcsr_matmul", "cyclic_encode",
                                         "decode_matmul",
-                                        "mla_decode_attention"}
+                                        "mla_decode_attention",
+                                        "held_expert_ffn"}
     finally:
         mla_decode_attention.launches = saved
 

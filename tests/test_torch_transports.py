@@ -42,7 +42,7 @@ TOL = dict(rtol=2e-5, atol=2e-5)
 LOOSE = dict(rtol=5e-3, atol=5e-3)
 CPU = torch.device("cpu")
 NO_LAUNCHES = {"bcsr_matmul": 0, "cyclic_encode": 0, "decode_matmul": 0,
-               "mla_decode_attention": 0}
+               "mla_decode_attention": 0, "held_expert_ffn": 0}
 # a suspicion timeout no load reaches: tests of death notices must see
 # only the deaths they cause, not a loaded child's late heartbeats
 # failed on suspicion (the default is 2 s)
