@@ -32,6 +32,19 @@ Phases, one JSON line each:
      1.1x the plain version's, and bitwise equal over two calls; its
      time, the plain version's, the dense chain's it replaced, and the
      least time by bytes;
+  1e. sparse step -- the DeepSeek-V3.2 cell's model on its main path:
+     deepseek-v3.2 at published widths cut to 5 layers and 8 held
+     experts, bf16, 128 sessions at position 33,279 of a 33,792-position
+     cache drawn at random: one ``decode_step`` selects 2,048 rows a
+     session, launches the latent kernel twice a layer (128 heads, 64 a
+     launch) and the held experts' once an MoE layer at 128 tokens, and
+     nothing else; held against the same step through both plain chains:
+     their selections the same in layer 0 (the share alike after it
+     reported), the logits on the kernel chain's selections within 1c's
+     limits; the step's time and the plain chains'; then the step as the
+     cell runs it, replayed as one CUDA graph (``DecodeGraph``): its
+     layer 0 selection the eager step's, its logits within 1c's limits
+     of them (whether bitwise equal is reported), and its time;
   3. mv     -- the coded LM head of phi3-mini-3.8b: ``compile_plan`` over
      a random (3072, 32064) head with ``CodedConfig``'s defaults (n=16
      workers, s=2 stragglers, Alg. 1), then ``plan.matvec`` for a decode
@@ -317,6 +330,8 @@ from repro_torch.optim import (  # noqa: E402
     apply_updates,
 )
 from repro_torch.train import TrainConfig, Trainer  # noqa: E402
+import repro_torch.models.dsa as dsa_module  # noqa: E402
+from repro_torch.models.decode_graph import DecodeGraph  # noqa: E402
 import repro_torch.models.mla as mla_module  # noqa: E402
 import repro_torch.models.moe as moe_module  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
@@ -773,6 +788,128 @@ def phase_mla_step(seed: int, dev, steps: int = 3, reps: int = 5
                              f"{row['finite']}")
     del model, cache, want, got
     return counts, row
+
+
+# ---------------------------------------------------------------------------
+# Phase 1e: the sparse decode step at the DeepSeek-V3.2 cell's shapes
+# ---------------------------------------------------------------------------
+
+# the sparse cell's model and sessions; a position mid-stretch of its
+# cache, so that every session selects index_topk of them
+SPARSE_ARCH, SPARSE_SESSIONS = "deepseek-v3.2", 128
+SPARSE_LENGTH, SPARSE_BUFFER = 33280, 33792
+
+
+def phase_sparse_step(seed: int, dev, reps: int = 5) -> dict:
+    """Phase 1e -> the step's row.  The cache is drawn N(0, 1), not
+    prefilled: 4.3M prompt tokens would take minutes, and both chains
+    read the same one.  Past layer 0 the two chains' inputs differ by
+    their rounding, and a position whose index ties the 2048th within it
+    may change sides, which moves a row's output as much as any other
+    position (over this random cache up to 15% of a row's positions do,
+    on the card): so the plain chain's logits are taken on the kernel
+    chain's selections (``dsa.index_topk`` replayed).  Its own
+    selections are the kernel chain's in layer 0, whose input is the
+    same; the least share of a row's positions the two chains chose
+    alike is reported for every layer."""
+    cfg = get_config(SPARSE_ARCH).with_(n_layers=MLA_LAYERS, first_dense=1)
+    cfg = cfg.with_(moe=dataclasses.replace(cfg.moe, n_held=MLA_HELD,
+                                            held_from=0))
+    model = build_model(cfg, torch.bfloat16, device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(seed))
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    b, k = SPARSE_SESSIONS, cfg.indexer.topk
+    toks = torch.randint(0, cfg.vocab, (b, 1), device=dev, generator=gen)
+    n_moe = sum(hasattr(blk, "held_tokens") for blk in model.layers)
+    with torch.inference_mode():
+        cache = model.init_cache(b, SPARSE_BUFFER)
+        for layer in cache["layers"]:
+            for t in layer.values():
+                t.normal_(generator=gen)
+    chosen, replay = [], []
+    index_topk = dsa_module.index_topk
+
+    def recorded(*args):
+        out = replay.pop(0) if replay else index_topk(*args)
+        chosen.append(out)
+        return out
+
+    def step() -> torch.Tensor:
+        cache["step"] = SPARSE_LENGTH - 1
+        return model.decode_step(cache, toks)[0]
+
+    def taken() -> list:
+        out = [c.sort(-1).values for c in chosen[:cfg.n_layers]]
+        chosen.clear()
+        return out
+
+    dsa_module.index_topk = recorded
+    real = mla_module.takes, moe_module.takes
+    try:
+        with torch.inference_mode():
+            reset_launch_counts()
+            got = step()
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            expect_counts("sparse step", counts,
+                          mla_decode_attention=2 * cfg.n_layers,
+                          held_expert_ffn=n_moe)
+            got_chose = taken()
+            ms = cuda_ms(step, reps)
+            graph = DecodeGraph(model, cache)
+
+            def graph_step() -> torch.Tensor:
+                cache["step"] = SPARSE_LENGTH - 1
+                return graph(cache, toks)[0]
+            replayed = graph_step()
+            chosen.clear()
+            graph_chose = model.layers[0].selected.sort(-1).values
+            graph_ms = cuda_ms(graph_step, reps)
+            del graph
+            chosen.clear()
+            mla_module.takes = moe_module.takes = lambda *route: False
+            reset_launch_counts()
+            step()
+            own_chose = taken()
+            plain_ms = cuda_ms(step, reps)
+            expect_counts("sparse step (plain chain)", launch_counts())
+            chosen.clear()
+            replay.extend(got_chose)
+            want = step()
+    finally:
+        dsa_module.index_topk = index_topk
+        mla_module.takes, moe_module.takes = real
+    # per row, the share of the kernel chain's positions the plain chain
+    # chose too (both sorted)
+    shared = [float((c.gather(-1, torch.searchsorted(c, a).clamp(max=k - 1))
+                     == a).float().mean(-1).min())
+              for a, c in zip(got_chose, own_chose)]
+    errs = ((got.float() - want.float()).abs().amax(1)
+            / want.float().abs().amax(1))
+    err = {"median": float(errs.median()),
+           "p90": float(errs.quantile(0.9)), "max": float(errs.max())}
+    g_errs = ((replayed.float() - got.float()).abs().amax(1)
+              / got.float().abs().amax(1))
+    g_err = {"median": float(g_errs.median()),
+             "p90": float(g_errs.quantile(0.9)), "max": float(g_errs.max())}
+    row = {"case": f"{SPARSE_ARCH} decode_step B={b} L={SPARSE_LENGTH} "
+                   f"({cfg.n_layers} layers)",
+           "selected": list(got_chose[0].shape),
+           "least_shared_by_layer": shared,
+           "logits_rel_err": err, "step_ms": ms, "plain_step_ms": plain_ms,
+           "graph_rel_err": g_err,
+           "graph_bitwise": bool(torch.equal(replayed, got)),
+           "graph_step_ms": graph_ms,
+           "finite": bool(torch.isfinite(got).all())}
+    emit("sparse_step", launches=counts, **row)
+    if (not row["finite"] or shared[0] != 1.0
+            or got_chose[0].shape != (b, 1, k)
+            or not torch.equal(graph_chose, got_chose[0])
+            or any(err[name] > limit or g_err[name] > limit
+                   for name, limit in MLA_STEP_LIMITS.items())):
+        raise AssertionError(f"sparse step: {row}")
+    del model, cache, want, got, replayed
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -4605,6 +4742,9 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     held_row = phase_held(args.seed, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_sparse_step(args.seed, dev)
     gc.collect()
     torch.cuda.empty_cache()
     gen = torch.Generator(device=dev).manual_seed(args.seed)

@@ -52,6 +52,18 @@ class MLAConfig:
 
 
 @dataclass(frozen=True)
+class IndexerConfig:
+    """DeepSeek Sparse Attention's lightning indexer (DeepSeek-V3.2): per
+    token ``n_heads`` queries of ``head_dim`` from the layer's normed
+    query latent, one cached key of ``head_dim``, and per query the
+    ``topk`` positions latent attention attends (``models/dsa.py``)."""
+
+    n_heads: int
+    head_dim: int
+    topk: int
+
+
+@dataclass(frozen=True)
 class MoEConfig:
     n_experts: int                   # the router's width
     top_k: int
@@ -77,7 +89,10 @@ class MoEConfig:
 class SigmoidMoEConfig(MoEConfig):
     """DeepSeek-V3's noaux_tc routing (the port's own): the top ``top_k``
     of sigmoid scores plus a correction bias, weights from the unbiased
-    scores normalised and scaled by ``routed_scale``; dropless.  The chip
+    scores normalised and scaled by ``routed_scale``; dropless.  With
+    ``n_group`` > 1 the experts fall in that many equal groups, each
+    scored by the sum of its two best biased scores, and only the
+    ``topk_group`` best groups' experts are chosen from.  The chip
     holds ``n_held`` experts from ``held_from`` (None: all of them); the
     router still routes over all ``n_experts``."""
 
@@ -86,6 +101,8 @@ class SigmoidMoEConfig(MoEConfig):
     bias_init_std: float = 0.0       # the correction bias's init draw
     n_held: int | None = None
     held_from: int = 0
+    n_group: int = 1
+    topk_group: int = 1
 
 
 @dataclass(frozen=True)
@@ -192,6 +209,7 @@ class ModelConfig:
     # config has: class attributes and not fields, so that the ten
     # configs copied from the JAX package stay its data
     mla = None
+    indexer = None
     first_dense = 0
     init_std = None
 
@@ -264,10 +282,10 @@ class ModelConfig:
 
     def _mla_param_count(self) -> int:
         """Exact count of a latent-attention model's weights: embedding
-        and untied head, per layer MLA and two norms, the leading dense
-        FFNs, and per MoE layer the router (and correction bias), the
-        held experts and the shared expert."""
-        d, m = self.d_model, self.mla
+        and untied head, per layer MLA (and its indexer) and two norms,
+        the leading dense FFNs, and per MoE layer the router (and
+        correction bias), the held experts and the shared expert."""
+        d, m, ix = self.d_model, self.mla, self.indexer
         total = self.vocab * d * (1 if self.tie_embeddings else 2) + d
         attn = (d * m.q_lora_rank + m.q_lora_rank
                 + m.q_lora_rank * m.n_heads * m.qk_head_dim
@@ -275,6 +293,9 @@ class ModelConfig:
                 + m.kv_lora_rank * m.n_heads
                 * (m.qk_nope_head_dim + m.v_head_dim)
                 + m.n_heads * m.v_head_dim * d + 2 * d)
+        if ix is not None:
+            attn += (m.q_lora_rank * ix.n_heads * ix.head_dim
+                     + d * ix.head_dim + 2 * ix.head_dim + d * ix.n_heads)
         n_dense = self.n_layers if self.moe is None else self.first_dense
         ffn = 3 * d * self.d_ff * n_dense
         if self.moe is not None:
@@ -302,13 +323,15 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class LatentModelConfig(ModelConfig):
-    """A model with latent attention (the port's own: Kimi-K2-Instruct):
-    ``mla`` in place of ``attn`` in every layer; the ``first_dense``
-    leading layers of an MoE model keep a dense FFN of width ``d_ff``;
-    every weight matrix and the embedding draw N(0, ``init_std``) (HF's
-    ``initializer_range``)."""
+    """A model with latent attention (the port's own: Kimi-K2-Instruct,
+    DeepSeek-V3.2): ``mla`` in place of ``attn`` in every layer, with
+    the ``indexer`` of DeepSeek Sparse Attention where it is set; the
+    ``first_dense`` leading layers of an MoE model keep a dense FFN of
+    width ``d_ff``; every weight matrix and the embedding draw N(0,
+    ``init_std``) (HF's ``initializer_range``)."""
 
     mla: MLAConfig | None = None
+    indexer: IndexerConfig | None = None
     first_dense: int = 0
     init_std: float = 0.02
 

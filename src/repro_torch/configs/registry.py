@@ -1,7 +1,8 @@
 """--arch registry: assigned architectures (+ the paper's own edge config).
 
 The first ten are the JAX package's table entries; ``kimi-k2-instruct``
-is the port's own (the published Kimi-K2-Instruct, latent attention)."""
+and ``deepseek-v3.2`` are the port's own (the published Kimi-K2-Instruct
+and DeepSeek-V3.2: latent attention, the latter made sparse)."""
 
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ _MODULES = {
     "granite-moe-1b-a400m": "granite_moe_1b",
     "kimi-k2-1t-a32b": "kimi_k2_1t",
     "kimi-k2-instruct": "kimi_k2_instruct",
+    "deepseek-v3.2": "deepseek_v3_2",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -338,14 +338,25 @@ def moe_block_ep(p: dict, x: torch.Tensor, moe: MoEConfig, mesh,
 
 def route_sigmoid(router: torch.Tensor, bias: torch.Tensor,
                   tokens: torch.Tensor, moe: MoEConfig):
-    """DeepSeek-V3's noaux_tc with one group: logits in full f32, scores =
+    """DeepSeek-V3's noaux_tc: logits in full f32, scores =
     sigmoid(logits), the top ``top_k`` of scores + bias, weights = the
-    unbiased scores there / (their sum + 1e-20) x ``routed_scale``.
+    unbiased scores there / (their sum + 1e-20) x ``routed_scale``.  With
+    ``n_group`` > 1 (DeepSeek-V3.2: 8 groups of 32) each group is scored
+    by the sum of its two largest biased scores, and the experts of all
+    but the ``topk_group`` best groups are out of the choice (-inf, as
+    the published inference code masks them).
     -> (weights (t, k) f32, experts (t, k) int64)."""
     with _full_f32():
         logits = tokens.float() @ router.float()
     scores = torch.sigmoid(logits)
-    top_e = torch.topk(scores + bias.float(), moe.top_k, dim=-1).indices
+    biased = scores + bias.float()
+    if moe.n_group > 1:
+        grouped = biased.view(biased.shape[0], moe.n_group, -1)
+        best = grouped.topk(2, dim=-1).values.sum(-1)        # (t, n_group)
+        kept = best.topk(moe.topk_group, dim=-1).indices
+        out = torch.ones_like(best, dtype=torch.bool).scatter_(1, kept, False)
+        biased = grouped.masked_fill(out[..., None], float("-inf")).flatten(1)
+    top_e = torch.topk(biased, moe.top_k, dim=-1).indices
     w = scores.gather(1, top_e)
     w = w / (w.sum(-1, keepdim=True) + 1e-20) * moe.routed_scale
     return w, top_e

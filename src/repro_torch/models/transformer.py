@@ -26,7 +26,8 @@ keep the reference's ``(d_in, d_out)`` orientation, so
 ``repro_torch.convert`` carries them across as plain copies.
 
 Each layer kind is one class (``AttentionBlock``, ``LatentBlock`` for
-``cfg.mla``, ``MambaBlock``) and every entry of ``_blocks()`` answers
+``cfg.mla`` and ``SparseLatentBlock`` with ``cfg.indexer``,
+``MambaBlock``) and every entry of ``_blocks()`` answers
 ``init(gen)``, ``forward(x) -> (x, aux or None)`` (training),
 ``init_cache(batch, max_len)``, ``prefill(x, max_len) -> (x, cache)``
 and ``decode(x, cache, step) -> x``, so the model's loops never ask
@@ -77,6 +78,12 @@ from .mamba2 import (
     mamba_decode_step,
     mamba_param_shapes,
     mamba_prefill,
+)
+from .dsa import (
+    dsa_decode,
+    dsa_prefill,
+    indexer_param_shapes,
+    init_indexer_params,
 )
 from .mla import (
     init_latent_cache,
@@ -199,15 +206,16 @@ class Block(nn.Module):
         return x + mlp_block(self.mlp, h, cfg.act), None
 
     def _seq(self, x: torch.Tensor, causal: bool, cut: bool = False):
-        """The layer over a whole sequence -> (x, aux, k, v); ``cut``: the
-        residual's sharding cut point between attention and FFN (the
-        reference's training layer has it, its prefill not)."""
-        y, k, v = self._attend(rms_norm(x, self.norm1, self.cfg.norm_eps),
-                               causal)
-        return self._ffn(shard("resid", x + y) if cut else x + y) + (k, v)
+        """The layer over a whole sequence -> (x, aux, what its attention
+        caches); ``cut``: the residual's sharding cut point between
+        attention and FFN (the reference's training layer has it, its
+        prefill not)."""
+        y, state = self._attend(rms_norm(x, self.norm1, self.cfg.norm_eps),
+                                causal)
+        return self._ffn(shard("resid", x + y) if cut else x + y) + (state,)
 
     def forward(self, x: torch.Tensor):
-        x, aux, _, _ = self._seq(x, self.causal, cut=True)
+        x, aux, _ = self._seq(x, self.causal, cut=True)
         return shard("resid", x), aux
 
     def decode(self, x: torch.Tensor, cache: dict, step: int):
@@ -238,7 +246,7 @@ class AttentionBlock(Block):
         o = self_attention(q, k, v, causal=causal, window=self.window,
                            impl=cfg.attn_impl, chunk=cfg.attn_chunk)
         return (torch.einsum("bse,ed->bsd", reshape(o, b, s, -1),
-                             self.attn["wo"]), k, v)
+                             self.attn["wo"]), (k, v))
 
     def _attend_one(self, h: torch.Tensor, cache: dict, step: int):
         return attention_decode(self.attn, h, cache, step, self.cfg.attn,
@@ -249,7 +257,7 @@ class AttentionBlock(Block):
                              self.dtype, self.norm1.device)
 
     def prefill(self, x: torch.Tensor, max_len: int):
-        x, _, k, v = self._seq(x, causal=True)
+        x, _, (k, v) = self._seq(x, causal=True)
         ck, cv = (prompt_kv_cache(t, max_len, self.window, self.dtype)
                   for t in (k, v))
         cache = {"k": shard("kv", ck), "v": shard("kv", cv)}
@@ -259,19 +267,32 @@ class AttentionBlock(Block):
 class LatentBlock(Block):
     """Latent attention (``cfg.mla``, ``models/mla.py``), always causal:
     the expanded form over whole sequences, the absorbed form decoding
-    against ``{"c", "kr"}``, the latent and the rotated key."""
+    against ``{"c", "kr"}``, the latent and the rotated key.  ``attended``
+    and ``cached`` count, as host ints, the positions a decode step's rows
+    attend and hold, summed over the steps."""
 
     def __init__(self, cfg: ModelConfig, kind: str, dtype, device, dense):
-        super().__init__(cfg, kind, mla_param_shapes(cfg.d_model, cfg.mla),
-                         dtype, device, dense)
+        super().__init__(cfg, kind, self._shapes(cfg), dtype, device, dense)
+        self.attended = self.cached = 0
+
+    @staticmethod
+    def _shapes(cfg: ModelConfig) -> dict:
+        return mla_param_shapes(cfg.d_model, cfg.mla)
 
     def _init_attn(self, gen: torch.Generator) -> None:
         init_mla_params(self.attn, self.cfg.init_std, gen)
 
     def _attend(self, h: torch.Tensor, causal: bool):
-        return mla_prefill(self.attn, h, self.cfg.mla, eps=self.cfg.norm_eps)
+        y, c, kr = mla_prefill(self.attn, h, self.cfg.mla,
+                               eps=self.cfg.norm_eps)
+        return y, {"c": c, "kr": kr}
+
+    def _count(self, rows: int, attended: int, cached: int) -> None:
+        self.attended += rows * attended
+        self.cached += rows * cached
 
     def _attend_one(self, h: torch.Tensor, cache: dict, step: int):
+        self._count(h.shape[0], step + 1, step + 1)
         return mla_decode(self.attn, h, cache, step, self.cfg.mla,
                           eps=self.cfg.norm_eps)
 
@@ -280,9 +301,50 @@ class LatentBlock(Block):
                                  self.norm1.device)
 
     def prefill(self, x: torch.Tensor, max_len: int):
-        x, _, c, kr = self._seq(x, causal=True)
-        return x, {"c": prefix_cache(c, max_len, self.dtype),
-                   "kr": prefix_cache(kr, max_len, self.dtype)}
+        x, _, state = self._seq(x, causal=True)
+        return x, {name: prefix_cache(t, max_len, self.dtype)
+                   for name, t in state.items()}
+
+
+class SparseLatentBlock(LatentBlock):
+    """Latent attention made sparse by ``cfg.indexer`` (DeepSeek Sparse
+    Attention, ``models/dsa.py``): the layer holds the indexer
+    (``attn.indexer``), caches its key beside the latent (``{"c", "kr",
+    "ik"}``), and each query attends only the positions it selects.
+    ``selected`` holds the last decode step's choice, (B, 1, topk) on the
+    card, or None where it attended every position; ``attended`` counts
+    the positions it gathered."""
+
+    selected = None
+
+    @staticmethod
+    def _shapes(cfg: ModelConfig) -> dict:
+        return dict(mla_param_shapes(cfg.d_model, cfg.mla),
+                    indexer=indexer_param_shapes(cfg.d_model, cfg.mla,
+                                                 cfg.indexer))
+
+    def _init_attn(self, gen: torch.Generator) -> None:
+        super()._init_attn(gen)
+        init_indexer_params(self.attn["indexer"], self.cfg.init_std, gen)
+
+    def _attend(self, h: torch.Tensor, causal: bool):
+        cfg = self.cfg
+        return dsa_prefill(self.attn, h, cfg.mla, cfg.indexer,
+                           eps=cfg.norm_eps)
+
+    def _attend_one(self, h: torch.Tensor, cache: dict, step):
+        cfg = self.cfg
+        y, self.selected = dsa_decode(self.attn, h, cache, step, cfg.mla,
+                                      cfg.indexer, eps=cfg.norm_eps)
+        if not isinstance(step, torch.Tensor):  # a graph counts its replays
+            self._count(h.shape[0], step + 1 if self.selected is None
+                        else self.selected.shape[-1], step + 1)
+        return y
+
+    def init_cache(self, batch: int, max_len: int) -> dict:
+        return dict(super().init_cache(batch, max_len), ik=torch.zeros(
+            (batch, max_len, self.cfg.indexer.head_dim), dtype=self.dtype,
+            device=self.norm1.device))
 
 
 class MambaBlock(nn.Module):
@@ -363,7 +425,8 @@ class TransformerLM(nn.Module):
         if kind == "M":
             return MambaBlock(cfg, dtype, device)
         if cfg.mla is not None:
-            return LatentBlock(cfg, kind, dtype, device, dense=dense)
+            block = LatentBlock if cfg.indexer is None else SparseLatentBlock
+            return block(cfg, kind, dtype, device, dense=dense)
         return AttentionBlock(cfg, kind, dtype, device, dense=dense)
 
     @property
@@ -450,7 +513,9 @@ class TransformerLM(nn.Module):
 
     def decode_step(self, cache: dict, tokens) -> tuple[torch.Tensor, dict]:
         """One-token step.  tokens (B, 1) -> (logits (B, V), cache); the
-        cache is advanced in place and returned."""
+        cache is advanced in place and returned.  A sparse-attention
+        model also takes ``step`` as a (1,) int64 tensor on the device,
+        past ``index_topk`` (``decode_graph.py``)."""
         with scope("model.decode_step"):
             x = self._embed(tokens)
             step = cache["step"]
@@ -462,10 +527,10 @@ class TransformerLM(nn.Module):
 
 
 def join_caches(parts: list[dict], max_len: int) -> dict:
-    """Latent caches ``{c, kr}`` of the same model and position, one per
-    group of rows, joined along the batch into one of ``max_len``
-    positions: the positions before ``step`` are copied, the rest are
-    zeros."""
+    """Latent caches (``{c, kr}``, and ``ik`` with an indexer) of the same
+    model and position, one per group of rows, joined along the batch
+    into one of ``max_len`` positions: every tensor's positions before
+    ``step`` are copied, the rest are zeros."""
     if not parts:
         raise ValueError("no caches to join")
     step = parts[0]["step"]
@@ -476,8 +541,10 @@ def join_caches(parts: list[dict], max_len: int) -> dict:
         raise ValueError(f"max_len {max_len} < position {step}")
     layers = []
     for i, first in enumerate(parts[0]["layers"]):
-        if set(first) != {"c", "kr"}:
-            raise ValueError(f"layer {i} holds no latent cache")
+        if not {"c", "kr"} <= set(first) or any(
+                set(p["layers"][i]) != set(first) for p in parts):
+            raise ValueError(f"layer {i} holds no latent cache, or not "
+                             f"the same one in every part")
         joined = {}
         for name, t in first.items():
             rows = [p["layers"][i][name] for p in parts]

@@ -77,7 +77,7 @@ PROGRAM_SPANS = (
 # names alone
 MODEL_SPANS = (
     "model.prefill", "model.decode_step", "model.head",
-    "mla.prefill", "mla.decode",
+    "mla.prefill", "mla.decode", "mla.index", "mla.select",
     "moe.route", "moe.experts", "moe.shared",
 )
 

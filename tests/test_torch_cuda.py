@@ -1347,6 +1347,118 @@ def test_kimi_decode_step_launches_the_held_kernel_once_a_moe_layer(
 
 
 # ---------------------------------------------------------------------------
+# DeepSeek-V3.2's sparse decode step
+# ---------------------------------------------------------------------------
+
+
+def test_deepseek_sparse_decode_step_against_its_plain_chain(hopper,
+                                                             monkeypatch):
+    """One ``decode_step`` of the benchmark cell's model (5 layers, 8 held
+    experts, published widths, bf16) at batch 2 past ``index_topk``
+    (2,100 positions, so the prompt's late queries and the step select
+    2,048): latent attention's kernel twice a layer (128 heads, two
+    launches of 64), no host wait, and logits within the cell's median
+    limit of the same step through the plain chain.  The indexer's
+    selection is the same positions in layer 0, whose input is the same
+    on both paths; later layers read inputs that the two attention paths
+    rounded differently, and a position whose index ties the 2048th
+    within that rounding may change sides (at most 2% of them)."""
+    import dataclasses
+
+    import repro_torch.models.dsa as dsa
+    import repro_torch.models.mla as mla_module
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config("deepseek-v3.2").with_(n_layers=5, first_dense=1)
+    cfg = cfg.with_(moe=dataclasses.replace(cfg.moe, n_held=8, held_from=0))
+    model = build_model(cfg, torch.bfloat16, device=hopper)
+    model.init(torch.Generator(device=hopper).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (2, 2102), device=hopper,
+                         generator=torch.Generator(device=hopper)
+                         .manual_seed(1))
+    chosen = []
+    index_topk = dsa.index_topk
+
+    def spy(*args):
+        out = index_topk(*args)
+        chosen.append(out.sort(-1).values)
+        return out
+    monkeypatch.setattr(dsa, "index_topk", spy)
+    with torch.inference_mode():
+        _, cache = model.prefill(toks[:, :2100], 2112)
+        assert set(cache["layers"][0]) == {"c", "kr", "ik"}
+        chosen.clear()
+        before = mla_decode_attention.launches
+        got, _ = model.decode_step(cache, toks[:, 2100:2101])
+        assert mla_decode_attention.launches == before + 2 * cfg.n_layers
+        kernel_chose = list(chosen)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            model.decode_step(cache, toks[:, 2101:2102])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        cache["step"] = 2100
+        chosen.clear()
+        monkeypatch.setattr(mla_module, "takes", lambda *route: False)
+        want, _ = model.decode_step(cache, toks[:, 2100:2101])
+    assert mla_decode_attention.launches == before + 4 * cfg.n_layers
+    assert len(kernel_chose) == len(chosen) == cfg.n_layers
+    assert torch.equal(kernel_chose[0], chosen[0])
+    for a, b in zip(kernel_chose, chosen):
+        assert a.shape == b.shape == (2, 1, 2048)
+        for row_a, row_b in zip(a.reshape(2, -1), b.reshape(2, -1)):
+            same = np.intersect1d(row_a.cpu().numpy(), row_b.cpu().numpy())
+            assert len(same) >= 0.98 * 2048, len(same)
+    assert torch.isfinite(got).all()
+    err = (got.float() - want.float()).abs().max() / want.abs().max()
+    assert err <= 4e-2, float(err)
+
+
+def test_deepseek_decode_graph_replays_the_eager_step(hopper):
+    """``DecodeGraph`` over the same model and cache (batch 2, 2,100
+    positions of 2,112): its step at 2,100 is ``decode_step``'s, logits
+    and every layer's selection (the eager step scores the whole cache
+    too, at this length), it counts the step's positions on the host, and
+    it refuses a position before ``index_topk`` and another cache."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.decode_graph import DecodeGraph
+
+    cfg = get_config("deepseek-v3.2").with_(n_layers=5, first_dense=1)
+    cfg = cfg.with_(moe=dataclasses.replace(cfg.moe, n_held=8, held_from=0))
+    model = build_model(cfg, torch.bfloat16, device=hopper)
+    model.init(torch.Generator(device=hopper).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (2, 2101), device=hopper,
+                         generator=torch.Generator(device=hopper)
+                         .manual_seed(2))
+    with torch.inference_mode():
+        _, cache = model.prefill(toks[:, :2100], 2112)
+        want, _ = model.decode_step(cache, toks[:, 2100:])
+        chose = [blk.selected.sort(-1).values for blk in model.layers]
+        graph = DecodeGraph(model, cache)
+        cache["step"] = 2100
+        before = [blk.attended for blk in model.layers]
+        for _ in range(2):
+            got, after = graph(cache, toks[:, 2100:])
+            cache["step"] = 2100
+        assert after["step"] == 2101 and after["layers"] is cache["layers"]
+        assert torch.equal(got, want)
+        for blk, c in zip(model.layers, chose):
+            assert torch.equal(blk.selected.sort(-1).values, c)
+        assert [blk.attended - a for blk, a in
+                zip(model.layers, before)] == [2 * 2 * 2048] * cfg.n_layers
+        with pytest.raises(ValueError, match="positions"):
+            graph(dict(cache, step=2047), toks[:, 2100:])
+        with pytest.raises(ValueError, match="cache"):
+            graph(model.init_cache(2, 2112) | {"step": 2100},
+                  toks[:, 2100:])
+
+
+# ---------------------------------------------------------------------------
 # The mesh on the card: one rank (the card machine has one card)
 # ---------------------------------------------------------------------------
 

@@ -492,12 +492,17 @@ def _latent_model(all_held: bool = False):
     return cfg, model, toks
 
 
+# the ranges only sparse attention's indexer opens (``models/dsa.py``)
+SPARSE_SPANS = ("mla.index", "mla.select")
+
+
 def test_a_decode_step_opens_every_model_range():
     """Under a profiler a prefill opens ``model.prefill``, ``mla.prefill``
     and the MoE's ranges inside it; a decode step opens
     ``model.decode_step`` enclosing ``mla.decode``, ``moe.route``,
     ``moe.experts``, ``moe.shared`` and ``model.head``: every name of
-    ``MODEL_SPANS`` between the two, each a plain host op."""
+    ``MODEL_SPANS`` but sparse attention's between the two, each a plain
+    host op."""
     _, model, toks = _latent_model()
     with torch.inference_mode():
         pre, (_, cache) = profiled(lambda: model.prefill(toks[:, :8], 16))
@@ -514,8 +519,35 @@ def test_a_decode_step_opens_every_model_range():
         assert all(inside(e, top[0]) for e in ranges)
         assert not any(e[3] for e in ranges)
     seen = {e[0] for e in pre + dec}
-    assert spans <= seen
+    assert spans - set(SPARSE_SPANS) <= seen
+    assert not seen & set(SPARSE_SPANS)
     assert not spans & set(trace_mod.PROGRAM_SPANS)
+
+
+def test_a_sparse_step_opens_the_indexers_ranges():
+    """DeepSeek-V3.2's smoke model: a prefill past ``index_topk`` opens
+    ``mla.index`` and ``mla.select`` inside ``mla.prefill``, a decode
+    step past it inside ``mla.decode``; the two then open every name of
+    ``MODEL_SPANS``, and each layer's counters add the step's attended
+    and held positions."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    cfg = get_smoke_config("deepseek-v3.2")
+    model = build_model(cfg, torch.float32, device="cpu")
+    model.init(torch.Generator().manual_seed(0))
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (3, 13)))
+    with torch.inference_mode():
+        pre, (_, cache) = profiled(lambda: model.prefill(toks[:, :12], 16))
+        dec, _ = profiled(lambda: model.decode_step(cache, toks[:, 12:]))
+    for events, outer in ((pre, "mla.prefill"), (dec, "mla.decode")):
+        outers = [e for e in events if e[0] == outer]
+        inner = [e for e in events if e[0] in SPARSE_SPANS]
+        assert {e[0] for e in inner} == set(SPARSE_SPANS)
+        assert all(any(inside(e, o) for o in outers) for e in inner)
+    assert set(trace_mod.MODEL_SPANS) <= {e[0] for e in pre + dec}
+    for blk in model.layers:
+        assert (blk.attended, blk.cached) == (3 * cfg.indexer.topk, 3 * 13)
 
 
 def test_held_counter_counts_every_routed_slot():
